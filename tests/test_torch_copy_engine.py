@@ -314,6 +314,50 @@ def test_wrapper_rejects_bad_inputs():
                                                           for a in args[1:]])
 
 
+def _bytes_oracle(qs, qbase, pctrl, tq, lit8, K: int) -> int:
+    """Slot-by-slot count of what ``bytes_moved`` states."""
+    B, NST1 = qs.shape
+    MAXQ, G32, RLP = qbase.shape[1], pctrl.shape[1] // K, lit8.shape[1]
+    quads, rows = set(), set()
+    for b in range(B):
+        for t in range(NST1 - 1):
+            q0 = int(qs[b, t])
+            for q in range(q0, q0 + 2 * max(0, (int(qs[b, t + 1]) - q0) >> 1)):
+                if 0 <= q < MAXQ:
+                    quads.add((b, q))
+    for b, q in quads:
+        for i in range(128):
+            bat = 4 * q + (i >> 5)
+            w = [int(pctrl[b, j * G32 + 32 * (bat >> 7) + (i & 31), bat & 127])
+                 & 0xFFFFFFFF for j in range(K)]
+            src = int(qbase[b, q]) + (w[0] >> 21)
+            if (any(((x >> 7) & 127) <= ((x >> 14) & 127) for x in w)
+                    and (w[0] >> 21) < 128 and tq[b, q, i] < 128
+                    and 0 <= src < RLP):
+                rows.add((b, src))
+    return (qs.nbytes + len(quads) * (4 + 128 + K * 512) + len(rows) * 128
+            + B * (NST1 - 1) * 128 * 128)
+
+
+@pytest.mark.parametrize("case", ["valid19", "valid26", "garbage", "64k_l3"])
+def test_bytes_moved_counts_live_control_and_rows(case):
+    if case == "64k_l3":
+        args = _packed(_big_blocks, 26)[2]
+    else:
+        args = random_group(5, B=3, NST=2, MAXQ=24, RLP=256, K=2,
+                            self_ref=(case == "valid26"),
+                            garbage=(case == "garbage"))
+    assert CE.bytes_moved(*CE.group_from_numpy(*args), K=2) == \
+        _bytes_oracle(*args, 2)
+
+
+def test_bytes_moved_ignores_padding():
+    args = _packed(_big_blocks, 19)[2]
+    MAXQ, RLP = args[1].shape[1], args[4].shape[1]
+    wider = PD.pad_v19_set(args, MAXQ + 64, RLP + 256, 2)
+    assert CE.bytes_moved(*wider) == CE.bytes_moved(*args)
+
+
 def test_plain_versions_do_not_count_launches():
     before = (CE.v19.launches, CE.v26.launches)
     args = CE.group_from_numpy(*_one_slot_group(_word(0, 0, 127), 1 << 7))

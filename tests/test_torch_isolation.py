@@ -126,6 +126,16 @@ def test_build_cache_rebuilds_on_source_change(tmp_path, monkeypatch):
     assert os.path.dirname(p1) == str(tmp_path / "build")
 
 
+def test_native_source_is_a_verbatim_copy():
+    # the port keeps its own copy of the JAX package's native host runtime;
+    # a one-sided edit would make the two packages' prep drift apart
+    with open(os.path.join(PKG, "runtime", "zxc_host.cpp"), "rb") as f:
+        port = f.read()
+    with open(os.path.join(ROOT, "zxc_tpu", "runtime", "zxc_host.cpp"),
+              "rb") as f:
+        assert port == f.read()
+
+
 def test_group_from_numpy_keeps_bits():
     rng = np.random.default_rng(3)
     arrays = (rng.integers(0, 9, (2, 3), dtype=np.int32),

@@ -1,7 +1,8 @@
 """Frame options and the native one-shot encoder.
 
 ``DecodeOpts`` / ``EncodeOpts`` and the level table are the port's copies
-of ``zxc_tpu.codec.frame`` and ``zxc_tpu.codec.block_encode.level_params``.
+of ``zxc_tpu.codec.frame`` and ``zxc_tpu.codec.block_encode.level_params``
+(``DecodeOpts`` without ``threads``: the port has no host decode yet).
 ``compress`` is the native frame encoder only (``zxch_compress_frame``,
 byte-identical to ``zxc_tpu.codec.frame.compress``); without the native
 library it raises — the port has no Python encoder.
@@ -24,7 +25,6 @@ class DecodeOpts:
     checksum: bool = False         # verify per-block + global checksums
     dict_content: bytes | None = None
     dict_huf: bytes | None = None  # 128-byte packed shared table
-    threads: int = 1               # host decode threads (unused on device)
 
 
 @dataclass

@@ -25,10 +25,11 @@ block's own output rows, each of which reads 0 until its supertile has
 been stored. A slot whose window-relative row exceeds 127, whose source
 lies outside the window or whose target row is >= 128 adds nothing.
 
-Bound on the card: the bytes each call must move — ``qs``, ``qbase``,
-``pctrl``, ``tq`` and ``lit8`` read once, the uint8 output written once —
-over the H100's 3.35 TB/s; a dispatch group of 16 x 64 KiB blocks moves a
-few MB, a microsecond or two. The kernels are far from it: each slot is a
+Bound on the card: the bytes each call must move (``bytes_moved``: ``qs``,
+the live quads' control and the window rows their slots read, each read
+once, and the uint8 output written once) over the H100's 3.35 TB/s; a
+dispatch group of 16 x 64 KiB blocks moves a few MB, a microsecond or
+two. The kernels are far from it: each slot is a
 chain of dependent loads and v26 has one CTA per block (16 CTAs on 132
 SMs). The design keeps the tile in shared memory as int32 with atomic
 adds (exact for any control) and lets one warp serve one slot with a
@@ -191,6 +192,43 @@ v26.launches = 0
 
 KERNELS = {19: v19, 26: v26}
 REFERENCES = {19: v19_reference, 26: v26_reference}
+
+
+def bytes_moved(qs, qbase, pctrl, tq, lit8, K: int = 2) -> int:
+    """The bytes one call must move for this group's control, padding
+    excluded: all of ``qs``; for each live quad (inside a supertile's
+    pair-rounded range and below MAXQ) its ``qbase`` word, its 128 ``tq``
+    bytes and its K x 128 ``pctrl`` words; each distinct ``lit8`` row that
+    a slot adding anything reads (v26's rows past RLP are the call's own
+    output, not an input); and the (B, NR, 128) uint8 output."""
+    qs, qbase, pctrl, tq = (np.asarray(a.cpu()) if isinstance(a, torch.Tensor)
+                            else np.asarray(a) for a in (qs, qbase, pctrl, tq))
+    B, NST1 = qs.shape
+    MAXQ = qbase.shape[1]
+    G32 = pctrl.shape[1] // K
+    RLP = lit8.shape[1]
+    qidx = np.arange(MAXQ)
+    live = np.zeros((B, MAXQ), bool)
+    for t in range(NST1 - 1):
+        q0 = qs[:, t].astype(np.int64)
+        qend = q0 + 2 * np.maximum((qs[:, t + 1].astype(np.int64) - q0) >> 1,
+                                   0)
+        live |= (qidx >= q0[:, None]) & (qidx < qend[:, None])
+    bb, qq = live.nonzero()
+    slot = np.arange(128)
+    bat = 4 * qq[:, None] + (slot >> 5)                              # (n,128)
+    w = pctrl[bb[:, None, None], np.arange(K) * G32
+              + (32 * (bat >> 7) + (slot & 31))[:, :, None],
+              (bat & 127)[:, :, None]].astype(np.int64) & 0xFFFFFFFF  # (n,128,K)
+    rowrel = w[:, :, 0] >> 21
+    src = qbase[bb, qq].astype(np.int64)[:, None] + rowrel
+    adds = ((((w >> 7) & 127) <= ((w >> 14) & 127)).any(axis=2)
+            & (rowrel < 128) & (tq[bb, qq] < TILE_ROWS)
+            & (src >= 0) & (src < RLP))
+    rows = np.unique((bb[:, None] * RLP + src)[adds])
+    control = len(qq) * (4 + LANES + K * LANES * 4)
+    return (qs.nbytes + control + len(rows) * LANES
+            + B * (NST1 - 1) * TILE_ROWS * LANES)
 
 
 def group_from_numpy(qs, qbase, pctrl, tq, lit8, device="cpu"):
