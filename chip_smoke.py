@@ -6,34 +6,49 @@
 Phases, in order; any failure exits non-zero before the result line:
 
 1. the card's name and power limit (nvidia-smi); build the native host
-   runtime (g++) and the copy-engine kernels (nvcc, sm_90a) in parallel;
+   runtime (g++) and the copy-engine kernels v19/v26/v27/v13
+   (``csrc/copy_engine.cu``, nvcc, sm_90a) in parallel;
 2. the pinned 32 MiB corpus (tools/gen_corpus.py, sha256 checked against
-   tools/corpus_manifest.json), encoded at level 3 with 64 KiB blocks by
-   the port's native encoder: 512 blocks, 32 dispatch groups of 16;
+   tools/corpus_manifest.json), encoded by the port's native encoder at
+   level 3 with 64 KiB blocks (512 blocks, 32 dispatch groups of 16) and
+   with 4 KiB blocks (8192 blocks, 512 groups); ``write_hints`` of the
+   64 KiB archive, timed on its own;
 3. each kernel against its plain PyTorch version on the card, on the first
-   dispatch group as the port's pipeline preps it: equal bytes, the
-   kernel's median time over CUDA-event-timed launches, the plain
-   version's time and the bytes bound (``copy_engine.bytes_moved``: the
-   group's live control and the window rows it reads, read once, and the
-   output written once, over 3.35 TB/s);
-4. the main path: ``decompress_e2e`` on the card for v26 (the cold
-   default) and v19, each with every launch counter set to 0 just before
-   and read just after; the output must equal the corpus, the kernel must
-   have launched once per group, and the fingerprint form must equal the
-   fingerprints computed on the host; wall time, GB/s and phase times;
-5. a corrupted archive (flipped payload byte with checksums on) and a
-   truncated one must raise ZxcError.
+   dispatch group as the port's pipelines ship it (v19, v26: the cold
+   prep; v27: the hint's control and the batch replay's flat lit; v13: the
+   4 KiB archive as ``ops/serial.py`` packs it): equal bytes, the kernel's
+   median time over CUDA-event-timed launches, the plain version's time
+   and the bytes bound (``copy_engine.bytes_moved``: the group's live
+   control and the window rows it reads, read once, and the output
+   written once, over 3.35 TB/s);
+4. the main paths, each with every launch counter set to 0 just before
+   and read just after; each output must equal the corpus and each path's
+   kernel must have launched once per group and no other kernel at all:
+   the cold ``decompress_e2e`` with v26 (the default) and v19; the hint
+   path ``decompress_e2e(hint=)`` with v27 (its default) and with v26;
+   the serial route ``ops.decompress(use_serial=True)`` with v19 at
+   64 KiB blocks and v13 at 4 KiB blocks. Fingerprint forms must equal
+   the fingerprints computed on the host. Wall time, GB/s and phase
+   times, and the device busy share of one cold v26 and one hint decode
+   (torch.profiler);
+5. corruption must raise ZxcError: a flipped payload byte with checksums
+   on and a truncated archive (cold path and serial route), a hint of
+   another archive, a truncated hint and a hint whose qbase carries the
+   (1<<24)|64 flip.
 
 It prints a ``{"kernels": [...]}`` line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Without CUDA, or outside a checkout of
 the repository, it fails without printing a result.
 """
+import atexit
 import hashlib
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -45,8 +60,11 @@ HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate (data sheet)
 CORPUS_BYTES = 32 << 20
 BLOCK = 64 << 10
 DISPATCH = 16
+SMALL_BLOCK = 4 << 10
 REPLACES = {19: "zxc_tpu/ops/pallas_decode.py:1306",
-            26: "zxc_tpu/ops/pallas_decode.py:1038"}
+            26: "zxc_tpu/ops/pallas_decode.py:1038",
+            27: "zxc_tpu/ops/pallas_decode.py:1188",
+            13: "zxc_tpu/ops/pallas_decode.py:279"}
 SOURCE = "zxc_tpu_torch/csrc/copy_engine.cu"
 
 
@@ -93,6 +111,125 @@ def host_fingerprint(data: bytes, block: int) -> tuple[int, int]:
     return int(a.sum()) & 0xFFFFFFFF, int((a * w).sum()) & 0xFFFFFFFF
 
 
+
+
+def zero_counts(CE) -> None:
+    for k in CE.KERNELS.values():
+        k.launches = 0
+
+
+def read_counts(CE) -> dict:
+    return {v: k.launches for v, k in CE.KERNELS.items()}
+
+
+def kernel_row(variant, kern, ref, nbytes, first_group, shape):
+    """Kernel against plain version on one group: equal bytes (also equal
+    to the corpus), kernel and plain times, bound. Returns the row."""
+    out = kern()
+    plain = ref()
+    torch.cuda.synchronize()
+    err = int((out.int() - plain.int()).abs().max())
+    check(err == 0, f"v{variant} kernel differs from its plain version "
+          f"(max abs err {err})")
+    check(first_group(out), f"v{variant} kernel's first group differs from "
+          "the corpus")
+    ms = cuda_ms(kern, reps=50)
+    plain_ms = cuda_ms(ref, reps=5, warm=1)
+    row = {"name": f"v{variant}", "route": "cuda", "source": SOURCE,
+           "replaces": REPLACES[variant], "launches": None,
+           "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+           "library_ms": None}
+    print(f"kernel v{variant}: {shape}, {nbytes} bytes to move; {ms:.4f} ms "
+          f"(median of 50) vs plain {plain_ms:.2f} ms, bound "
+          f"{row['bound_ms']:.6f} ms; equal", flush=True)
+    return row
+
+
+def group_bytes_equal(data, totals, block, dispatch):
+    def ok(out):
+        host = out.cpu().numpy().reshape(dispatch, -1)
+        dec = b"".join(host[j, :totals[j]].tobytes() for j in range(dispatch))
+        return dec == data[:len(dec)]
+    return ok
+
+
+def run_path(CE, name, kernel, n_launch, fn, data, reps=3):
+    """One main path: counters zeroed before and read after its first run,
+    which must equal ``data`` with ``n_launch`` launches of ``kernel`` and
+    none of any other; then the best of ``reps`` timed runs. Returns the
+    launches."""
+    zero_counts(CE)
+    ph = {}
+    t0 = time.perf_counter()
+    out = fn(ph)
+    wall0 = time.perf_counter() - t0
+    counts = read_counts(CE)
+    check(out == data, f"{name}: output differs from the corpus")
+    want = {v: (n_launch if v == kernel else 0) for v in counts}
+    check(counts == want, f"{name}: launches {counts}, expected {want}")
+    walls, phs = [], []
+    for _ in range(reps):
+        p = {}
+        t0 = time.perf_counter()
+        r = fn(p)
+        walls.append(time.perf_counter() - t0)
+        phs.append(p)
+        check(r == data, f"{name}: repeat differs")
+    best = min(range(reps), key=lambda i: walls[i])
+    print(f"{name}: launches {counts}, first wall {wall0:.4f} s (phases "
+          + ", ".join(f"{k} {v:.4f}" for k, v in ph.items())
+          + f"); best of {reps} {walls[best]:.4f} s = "
+          f"{len(data) / 1e9 / walls[best]:.4f} GB/s; phases "
+          + ", ".join(f"{k} {v:.4f} s" for k, v in phs[best].items()),
+          flush=True)
+    return counts[kernel]
+
+
+def profile_share(name, fn) -> None:
+    """Device busy share of one decode (torch.profiler, CUPTI): kernel and
+    copy time on the card over the decode's wall time."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        wall = time.perf_counter() - t0
+    busy_us = {ev.key: ev.self_device_time_total
+               for ev in prof.key_averages()
+               if ev.device_type == torch.autograd.DeviceType.CUDA
+               and ev.self_device_time_total > 0}
+    if not busy_us:
+        print(f"profile {name}: the profiler recorded no device time "
+              "(device busy share not measured)", flush=True)
+        return
+    top = sorted(busy_us.items(), key=lambda kv: -kv[1])[:4]
+    busy = sum(busy_us.values()) / 1e6
+    print(f"profile {name}: wall {wall:.4f} s, device busy {busy:.5f} s "
+          f"(idle share {1 - busy / wall:.4f}); top: "
+          + ", ".join(f"{k[:48]} {v / 1e3:.3f} ms" for k, v in top),
+          flush=True)
+
+
+def flipped_qbase_hint(H, path: str, out_path: str) -> None:
+    """A copy of the hint at ``path`` whose first qbase word carries the
+    (1<<24)|64 flip, re-framed so its header and body hash stay valid."""
+    import zxc_tpu_torch as Z
+    from zxc_tpu_torch.codec import frame
+    from zxc_tpu_torch import runtime
+    raw = open(path, "rb").read()
+    f = list(H._HDR.unpack(raw[:H.HEADER_SIZE]))
+    nb, NST = f[6], f[12]
+    body = bytearray(frame.decompress(raw[H.HEADER_SIZE:]))
+    qb_off = 8 * (3 * nb + nb + 1) + 4 * nb * (NST + 1)
+    body[qb_off:qb_off + 4] = ((1 << 24) | 64).to_bytes(4, "little")
+    comp = Z.compress(bytes(body), Z.EncodeOpts(level=1, block_size=1 << 20,
+                                                checksum=True))
+    f[13] = runtime.rapidhash64(comp[:4096]) ^ len(comp)
+    with open(out_path, "wb") as fo:
+        fo.write(H._HDR.pack(*f) + comp)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("CUDA is not available: this smoke run needs an NVIDIA card")
@@ -102,6 +239,7 @@ def main() -> None:
     from zxc_tpu_torch import runtime
     from zxc_tpu_torch.ops import _build, copy_engine as CE
     from zxc_tpu_torch.ops import device_pipeline as DP
+    from zxc_tpu_torch.ops import batch as BT, hints as H, serial as S
     from gen_corpus import gen_corpus
 
     smi = smi_line()
@@ -122,20 +260,43 @@ def main() -> None:
         if "registers" in ln or "spill" in ln or "Compiling" in ln:
             print(f"  ptxas: {ln.strip()}")
 
-    # -- 2. corpus and archive ---------------------------------------------
+    # -- 2. corpus, archives, hint -----------------------------------------
     t0 = time.perf_counter()
     data = gen_corpus(CORPUS_BYTES)
     with open(os.path.join(ROOT, "tools", "corpus_manifest.json")) as f:
         pinned = json.load(f)["mb32_seed42"]
     check(hashlib.sha256(data).hexdigest() == pinned,
           "corpus sha256 differs from tools/corpus_manifest.json")
+    threads = os.cpu_count() or 1
     arc = Z.compress(data, Z.EncodeOpts(level=3, block_size=BLOCK,
-                                        threads=os.cpu_count() or 1))
+                                        threads=threads))
+    arc4 = Z.compress(data, Z.EncodeOpts(level=3, block_size=SMALL_BLOCK,
+                                         threads=threads))
     walk = DP.walk_frame(arc)
     n_groups = -(-walk.n_blocks // DISPATCH)
+    n_groups4 = -(-DP.walk_frame(arc4).n_blocks // DISPATCH)
     print(f"corpus: {len(data)} bytes -> archive {len(arc)} bytes "
           f"({len(arc) / len(data):.4f}), {walk.n_blocks} blocks, "
-          f"{n_groups} groups ({time.perf_counter() - t0:.2f} s)", flush=True)
+          f"{n_groups} groups; 4 KiB archive {len(arc4)} bytes, "
+          f"{n_groups4} groups ({time.perf_counter() - t0:.2f} s)",
+          flush=True)
+    # hint files go to a scratch directory under the checkout's build/
+    # (gitignored), removed at exit
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    out_dir = tempfile.mkdtemp(prefix="smoke-", dir=os.path.join(ROOT,
+                                                                 "build"))
+    atexit.register(shutil.rmtree, out_dir, True)
+    hint_path = os.path.join(out_dir, "smoke.zxh")
+    t0 = time.perf_counter()
+    Z.write_hints(arc, hint_path)
+    t_write = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    hint = Z.HintFile(hint_path, arc)
+    t_load = time.perf_counter() - t0
+    g = hint.geo
+    print(f"hint: write_hints {t_write:.4f} s, {os.path.getsize(hint_path)} "
+          f"bytes on disk; load {t_load:.4f} s; v{g.variant} geometry K="
+          f"{g.K} MAXQ={g.MAXQ} NG32={g.NG32} RLP={g.RLP}", flush=True)
 
     # -- 3. kernel vs plain on the first dispatch group --------------------
     rows = {}
@@ -143,115 +304,116 @@ def main() -> None:
         pipe = DP.DevicePipeline(walk, arc, K=2, dispatch=DISPATCH,
                                  variant=variant)
         pipe.size_shapes()
-        buf = pipe.prep_group(0)
-        args = CE.group_from_numpy(buf.qs, buf.qbase, buf.pctrl, buf.tq,
-                                   buf.lit8, device="cuda")
+        buf, host_args = pipe.prep_group(0)
+        args = tuple(t.cuda() for t in host_args)
         kern, ref = CE.KERNELS[variant], CE.REFERENCES[variant]
-        out = kern(*args)
-        plain = ref(*args)
-        torch.cuda.synchronize()
-        err = int((out.int() - plain.int()).abs().max())
-        check(err == 0, f"v{variant} kernel differs from its plain version "
-              f"(max abs err {err})")
-        host = out.cpu().numpy().reshape(DISPATCH, -1)
-        dec = b"".join(host[j, :buf.totals[j]].tobytes()
-                       for j in range(DISPATCH))
-        check(dec == data[:len(dec)],
-              f"v{variant} kernel's first group differs from the corpus")
-        ms = cuda_ms(lambda: kern(*args), reps=50)
-        plain_ms = cuda_ms(lambda: ref(*args), reps=5, warm=1)
-        # the bound counts what this group's control needs, not the padded
-        # buffers (MAXQ and RLP carry the sizing margin)
-        nbytes = CE.bytes_moved(buf.qs, buf.qbase, buf.pctrl, buf.tq,
-                                buf.lit8, K=2)
-        padded = sum(t.numel() * t.element_size() for t in args) + out.numel()
-        rows[variant] = {
-            "name": f"v{variant}", "route": "cuda", "source": SOURCE,
-            "replaces": REPLACES[variant], "launches": None,
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
-            "library_ms": None}
-        print(f"kernel v{variant}: MAXQ={pipe.MAXQ} RLP={pipe.RLP} "
-              f"NG32={pipe.NG32}, {nbytes} bytes to move ({padded} in the "
-              f"padded buffers); {ms:.4f} ms (median of 50) vs plain "
-              f"{plain_ms:.2f} ms, bound {rows[variant]['bound_ms']:.6f} ms; "
-              f"equal", flush=True)
+        rows[variant] = kernel_row(
+            variant, lambda: kern(*args), lambda: ref(*args),
+            CE.bytes_moved(*host_args, K=2),
+            group_bytes_equal(data, buf.totals, BLOCK, DISPATCH),
+            f"MAXQ={pipe.MAXQ} RLP={pipe.RLP} NG32={pipe.NG32}")
+    pipe = DP.DevicePipeline(walk, arc, dispatch=DISPATCH, variant=None,
+                             hint=hint)
+    check(pipe.variant == 27, f"the hint selected v{pipe.variant}, not v27")
+    buf, host_args = pipe.prep_group(0)
+    args = tuple(t.cuda() for t in host_args)
+    rows[27] = kernel_row(
+        27, lambda: CE.v27(*args, RLP=pipe.RLP, K=pipe.K),
+        lambda: CE.v27_reference(*args, RLP=pipe.RLP, K=pipe.K),
+        CE.bytes_moved(*host_args[:2], *host_args[3:], K=pipe.K,
+                       loff=host_args[2], RLP=pipe.RLP),
+        group_bytes_equal(data, buf.totals, BLOCK, DISPATCH),
+        f"RLP={pipe.RLP} ROWS_TOT={pipe.rows_tot} (flat)")
+    plan4 = BT.plan_frame(arc4)
+    first = slice(0, DISPATCH)
+    sub = BT.FramePlan(plan4.block_size, plan4.ll[first], plan4.ml[first],
+                       plan4.off[first], plan4.lit[first],
+                       plan4.totals[first], plan4.dict_buf)
+    pieces, lits = BT.resolve_serial(sub)
+    (group,) = S.pack_groups(pieces, lits, sub.totals, SMALL_BLOCK, True,
+                             DISPATCH)
+    args = CE.group_from_numpy(*group, device="cuda")
+    rows[13] = kernel_row(
+        13, lambda: CE.v13(*args), lambda: CE.v13_reference(*args),
+        CE.bytes_moved(*group, K=1, rows=CE.V13_ROWS),
+        group_bytes_equal(data, sub.totals, SMALL_BLOCK, DISPATCH),
+        f"MAXQ={group[1].shape[1]} RLP={group[4].shape[1]}")
 
-    # -- 4. the main path ----------------------------------------------------
+    # -- 4. the main paths -------------------------------------------------
     fp_host = host_fingerprint(data, BLOCK)
-    for variant in (26, 19):
-        CE.v19.launches = 0
-        CE.v26.launches = 0
-        ph = {}
-        t0 = time.perf_counter()
-        out = Z.decompress_e2e(arc, device="cuda", variant=variant,
-                               _phases=ph)
-        wall0 = time.perf_counter() - t0
-        counts = {19: CE.v19.launches, 26: CE.v26.launches}
-        check(out == data, f"e2e v{variant} output differs from the corpus")
-        check(counts[variant] == n_groups,
-              f"e2e v{variant} launched its kernel {counts[variant]} times "
-              f"for {n_groups} groups")
-        rows[variant]["launches"] = counts[variant]
-        walls, phs = [], []
-        for _ in range(3):
-            p = {}
-            t0 = time.perf_counter()
-            r = Z.decompress_e2e(arc, device="cuda", variant=variant,
-                                 _phases=p)
-            walls.append(time.perf_counter() - t0)
-            phs.append(p)
-            check(r == data, f"e2e v{variant} repeat differs")
-        best = min(range(3), key=lambda i: walls[i])
+    cold = {26: None, 19: None}
+    for variant in cold:
+        rows[variant]["launches"] = run_path(
+            CE, f"e2e v{variant} (cold)", variant, n_groups,
+            lambda ph: Z.decompress_e2e(arc, device="cuda", variant=variant,
+                                        _phases=ph), data)
         fp = Z.decompress_e2e(arc, device="cuda", variant=variant,
                               _collect="fingerprint")
         check(fp[:2] == fp_host and fp[2:] == (walk.n_blocks, len(data)),
               f"e2e v{variant} fingerprint {fp} vs host {fp_host}")
-        print(f"e2e v{variant}: launches {counts}, first wall {wall0:.4f} s; "
-              f"best of 3 {walls[best]:.4f} s = "
-              f"{len(data) / 1e9 / walls[best]:.4f} GB/s; phases "
-              + ", ".join(f"{k} {v:.4f} s" for k, v in phs[best].items())
-              + f"; fingerprint {fp[:2]} equal", flush=True)
+    # the hint path: the first run ships the control pages to the card
+    # (the HintFile keeps them), the timed repeats ship lit only
+    rows[27]["launches"] = run_path(
+        CE, "e2e hint v27", 27, n_groups,
+        lambda ph: Z.decompress_e2e(arc, device="cuda", hint=hint,
+                                    _phases=ph), data)
+    fp = Z.decompress_e2e(arc, device="cuda", hint=hint,
+                          _collect="fingerprint")
+    check(fp[:2] == fp_host and fp[2:] == (walk.n_blocks, len(data)),
+          f"hint v27 fingerprint {fp} vs host {fp_host}")
+    print(f"e2e hint v27 fingerprint {fp[:2]} equal", flush=True)
+    run_path(CE, "e2e hint v26", 26, n_groups,
+             lambda ph: Z.decompress_e2e(arc, device="cuda", hint=hint,
+                                         variant=26, _phases=ph), data)
+    run_path(CE, "serial v19 (64 KiB blocks)", 19, n_groups,
+             lambda ph: Z.ops.decompress(arc, device="cuda", _phases=ph),
+             data)
+    rows[13]["launches"] = run_path(
+        CE, "serial v13 (4 KiB blocks)", 13, n_groups4,
+        lambda ph: Z.ops.decompress(arc4, device="cuda", _phases=ph), data)
+    profile_share("e2e v26 (cold)", lambda: Z.decompress_e2e(
+        arc, device="cuda", variant=26))
+    profile_share("e2e hint v27", lambda: Z.decompress_e2e(
+        arc, device="cuda", hint=hint))
 
-    # device busy share of one v26 decode (torch.profiler, CUPTI): kernel
-    # and copy time on the card over the decode's wall time
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        Z.decompress_e2e(arc, device="cuda", variant=26)
-        wall = time.perf_counter() - t0
-    busy_us = {ev.key: ev.self_device_time_total
-               for ev in prof.key_averages()
-               if ev.device_type == torch.autograd.DeviceType.CUDA
-               and ev.self_device_time_total > 0}
-    if busy_us:
-        top = sorted(busy_us.items(), key=lambda kv: -kv[1])[:4]
-        busy = sum(busy_us.values()) / 1e6
-        print(f"profile e2e v26: wall {wall:.4f} s, device busy {busy:.5f} s "
-              f"(idle share {1 - busy / wall:.4f}); top: "
-              + ", ".join(f"{k[:48]} {v / 1e3:.3f} ms" for k, v in top),
-              flush=True)
-    else:
-        print("profile e2e v26: the profiler recorded no device time "
-              "(device busy share not measured)", flush=True)
-
-    # -- 5. corrupted archives -------------------------------------------------
+    # -- 5. corruption -------------------------------------------------------
     small = Z.compress(data[:4 * BLOCK], Z.EncodeOpts(
         level=3, block_size=BLOCK, checksum=True))
     bad = bytearray(small)
     bad[60] ^= 0x20
-    for name, arc_bad, opts in (
-            ("flipped payload byte", bytes(bad), Z.DecodeOpts(checksum=True)),
-            ("truncated archive", small[:len(small) // 2], None)):
+    small_hint = os.path.join(out_dir, "small.zxh")
+    Z.write_hints(small, small_hint)
+    truncated = os.path.join(out_dir, "truncated.zxh")
+    with open(small_hint, "rb") as fi, open(truncated, "wb") as fo:
+        fo.write(fi.read()[:os.path.getsize(small_hint) // 2])
+    flipped = os.path.join(out_dir, "flipped.zxh")
+    flipped_qbase_hint(H, small_hint, flipped)
+    ck = Z.DecodeOpts(checksum=True)
+    for name, call in (
+            ("flipped payload byte", lambda: Z.decompress_e2e(
+                bytes(bad), ck, device="cuda")),
+            ("truncated archive", lambda: Z.decompress_e2e(
+                small[:len(small) // 2], device="cuda")),
+            ("flipped payload byte, serial", lambda: Z.ops.decompress(
+                bytes(bad), ck, device="cuda")),
+            ("truncated archive, serial", lambda: Z.ops.decompress(
+                small[:len(small) // 2], device="cuda")),
+            ("hint of another archive", lambda: Z.decompress_e2e(
+                arc, device="cuda", hint=small_hint)),
+            ("truncated hint", lambda: Z.decompress_e2e(
+                small, device="cuda", hint=truncated)),
+            ("hint with qbase (1<<24)|64", lambda: Z.decompress_e2e(
+                small, device="cuda", hint=flipped))):
         try:
-            Z.decompress_e2e(arc_bad, opts, device="cuda")
+            call()
         except Z.ZxcError as e:
             print(f"corrupt ({name}): raised {e}", flush=True)
         else:
             fail(f"{name} decoded without an error")
+    check(Z.decompress_e2e(small, device="cuda", hint=small_hint)
+          == data[:4 * BLOCK], "the unflipped small hint does not decode")
 
-    print(json.dumps({"kernels": [rows[19], rows[26]]}))
+    print(json.dumps({"kernels": [rows[v] for v in (19, 26, 27, 13)]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

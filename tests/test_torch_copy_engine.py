@@ -21,10 +21,14 @@ from zxc_tpu.ops import pallas_decode as PD
 
 from zxc_tpu_torch.ops import copy_engine as CE
 
-from test_torch_cuda import random_group
+from test_torch_cuda import random_group, flat_group
+from test_torch_jax_native import jax_native
 
-pytestmark = pytest.mark.skipif(not runtime.available(),
-                                reason="native toolchain unavailable")
+
+
+@pytest.fixture(autouse=True)
+def _jax_native():
+    jax_native()
 
 
 def _mixed_body(seed: int, size: int) -> bytes:
@@ -149,20 +153,22 @@ def test_kernel_parity_k3(variant):
 # hand-built control: pins the contract's corner cases
 # ---------------------------------------------------------------------------
 
-def _loop_oracle(qs, qbase, pctrl, tq, lit8, K: int, self_ref: bool):
-    """Slot-by-slot, lane-by-lane statement of the kernels' function."""
+def _loop_oracle(qs, qbase, pctrl, tq, lit8, K: int, self_ref: bool,
+                 rows: int = 128):
+    """Slot-by-slot, lane-by-lane statement of the kernels' function
+    (``rows``: tile rows, 32 for v13)."""
     B, NST1 = qs.shape
     NST = NST1 - 1
     MAXQ = qbase.shape[1]
     G32 = pctrl.shape[1] // K
     RLP = lit8.shape[1]
-    NR = NST * 128
+    NR = NST * rows
     out = np.zeros((B, NR, 128), np.int64)
     for b in range(B):
         for t in range(NST):
             win = (np.concatenate([lit8[b], (out[b] & 255)]) if self_ref
                    else lit8[b]).astype(np.int64)
-            tile = np.zeros((128, 128), np.int64)
+            tile = np.zeros((rows, 128), np.int64)
             q0 = int(qs[b, t])
             npairs = max(0, (int(qs[b, t + 1]) - q0) >> 1)
             for q in range(q0, q0 + 2 * npairs):
@@ -176,7 +182,8 @@ def _loop_oracle(qs, qbase, pctrl, tq, lit8, K: int, self_ref: bool):
                     rowrel = w[0] >> 21
                     src = int(qbase[b, q]) + rowrel
                     tgt = int(tq[b, q, i])
-                    if rowrel >= 128 or tgt >= 128 or not 0 <= src < len(win):
+                    if (rowrel >= 128 or not 0 <= tgt < rows
+                            or not 0 <= src < len(win)):
                         continue
                     for lane in range(128):
                         roll = None
@@ -186,7 +193,7 @@ def _loop_oracle(qs, qbase, pctrl, tq, lit8, K: int, self_ref: bool):
                                 roll = w[j] & 127
                         if roll is not None:
                             tile[tgt, lane] += win[src, (lane + roll) & 127]
-            out[b, t * 128:(t + 1) * 128] = tile
+            out[b, t * rows:(t + 1) * rows] = tile
     return out
 
 
@@ -314,11 +321,15 @@ def test_wrapper_rejects_bad_inputs():
                                                           for a in args[1:]])
 
 
-def _bytes_oracle(qs, qbase, pctrl, tq, lit8, K: int) -> int:
-    """Slot-by-slot count of what ``bytes_moved`` states."""
+def _bytes_oracle(qs, qbase, pctrl, tq, lit8, K: int, rows: int = 128,
+                  loff=None, RLP=None) -> int:
+    """Slot-by-slot count of what ``bytes_moved`` states; v27 (``loff``):
+    rows of the flat buffer ``lit8``; v13: ``rows=32``."""
     B, NST1 = qs.shape
-    MAXQ, G32, RLP = qbase.shape[1], pctrl.shape[1] // K, lit8.shape[1]
-    quads, rows = set(), set()
+    MAXQ, G32 = qbase.shape[1], pctrl.shape[1] // K
+    if loff is None:
+        RLP = lit8.shape[1]
+    quads, read = set(), set()
     for b in range(B):
         for t in range(NST1 - 1):
             q0 = int(qs[b, t])
@@ -331,18 +342,41 @@ def _bytes_oracle(qs, qbase, pctrl, tq, lit8, K: int) -> int:
             w = [int(pctrl[b, j * G32 + 32 * (bat >> 7) + (i & 31), bat & 127])
                  & 0xFFFFFFFF for j in range(K)]
             src = int(qbase[b, q]) + (w[0] >> 21)
-            if (any(((x >> 7) & 127) <= ((x >> 14) & 127) for x in w)
-                    and (w[0] >> 21) < 128 and tq[b, q, i] < 128
+            if not (any(((x >> 7) & 127) <= ((x >> 14) & 127) for x in w)
+                    and (w[0] >> 21) < 128 and 0 <= tq[b, q, i] < rows
                     and 0 <= src < RLP):
-                rows.add((b, src))
-    return (qs.nbytes + len(quads) * (4 + 128 + K * 512) + len(rows) * 128
-            + B * (NST1 - 1) * 128 * 128)
+                continue
+            if loff is None:
+                read.add((b, src))
+            elif loff[b] >= 0 and 0 <= loff[b] + src < len(lit8):
+                read.add(int(loff[b]) + src)
+    return (qs.nbytes + len(quads) * (4 + 128 * tq.itemsize + K * 512)
+            + len(read) * 128 + (0 if loff is None else 4 * B)
+            + B * (NST1 - 1) * rows * 128)
 
 
-@pytest.mark.parametrize("case", ["valid19", "valid26", "garbage", "64k_l3"])
+@pytest.mark.parametrize("case", ["valid19", "valid26", "garbage", "64k_l3",
+                                  "flat27", "flat27_garbage", "v13",
+                                  "v13_garbage"])
 def test_bytes_moved_counts_live_control_and_rows(case):
     if case == "64k_l3":
         args = _packed(_big_blocks, 26)[2]
+    elif case.startswith("v13"):
+        args = random_group(6, B=3, NST=3, MAXQ=12, RLP=256, K=1,
+                            self_ref=False, garbage=case.endswith("garbage"),
+                            rows=32)
+        assert CE.bytes_moved(*CE.group_from_numpy(*args), K=1, rows=32) \
+            == _bytes_oracle(*args, 1, rows=32)
+        return
+    elif case.startswith("flat27"):
+        garbage = case.endswith("garbage")
+        (qs, qbase, loff, pctrl, tq, flat), RLP = flat_group(
+            5, random_group(5, B=3, NST=2, MAXQ=24, RLP=128, K=2,
+                            self_ref=True, garbage=garbage), garbage)
+        assert CE.bytes_moved(qs, qbase, pctrl, tq, flat, K=2, loff=loff,
+                              RLP=RLP) == _bytes_oracle(
+            qs, qbase, pctrl, tq, flat, 2, loff=loff, RLP=RLP)
+        return
     else:
         args = random_group(5, B=3, NST=2, MAXQ=24, RLP=256, K=2,
                             self_ref=(case == "valid26"),

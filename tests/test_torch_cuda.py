@@ -1,6 +1,7 @@
-"""Card tests of the PyTorch port: each CUDA kernel against its plain
-PyTorch version on the card, on valid and on garbage control, and the
-end-to-end decode through the kernels. They need an NVIDIA card with
+"""Card tests of the PyTorch port: each CUDA kernel (v19, v26, v27, v13)
+against its plain PyTorch version on the card, on valid and on garbage
+control, and the cold, hint and serial decodes through the kernels
+against the CPU path. They need an NVIDIA card with
 nvcc, are marked ``cuda`` and skip without one. On the card:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
@@ -27,12 +28,14 @@ def card():
 
 
 def random_group(seed: int, B: int, NST: int, MAXQ: int, RLP: int, K: int,
-                 self_ref: bool, lit_max: int = 256, garbage: bool = False):
+                 self_ref: bool, lit_max: int = 256, garbage: bool = False,
+                 rows: int = 128):
     """One dispatch group of random control made with numpy. Valid control
     keeps quads in range, 16-aligned windows inside the window rows and
-    target rows < 128; ``garbage`` breaks all of that."""
+    target rows < ``rows``; ``garbage`` breaks all of that. ``rows=32``
+    makes v13's layout: 32-row tiles (NST of them) and int32 tq."""
     rng = np.random.default_rng(seed)
-    NR = NST * 128
+    NR = NST * rows
     NG32 = 32 * -(-4 * MAXQ // 128)
     win_rows = RLP + NR if self_ref else RLP
     shape = (B, K * NG32, 128)
@@ -40,7 +43,9 @@ def random_group(seed: int, B: int, NST: int, MAXQ: int, RLP: int, K: int,
         qs = rng.integers(-4, MAXQ + 5, (B, NST + 1)).astype(np.int32)
         qbase = rng.integers(-64, win_rows + 64, (B, MAXQ)).astype(np.int32)
         rowrel = rng.integers(0, 2048, shape)
-        tq = rng.integers(0, 256, (B, MAXQ, 128)).astype(np.uint8)
+        tq = (rng.integers(-40, 300, (B, MAXQ, 128)).astype(np.int32)
+              if rows == 32 else
+              rng.integers(0, 256, (B, MAXQ, 128)).astype(np.uint8))
     else:
         qs = np.zeros((B, NST + 1), np.int32)
         for b in range(B):
@@ -52,7 +57,8 @@ def random_group(seed: int, B: int, NST: int, MAXQ: int, RLP: int, K: int,
                  ).astype(np.int32)
         rowrel = rng.integers(0, 128, shape)
         rowrel[:, NG32:] = 0
-        tq = rng.integers(0, 128, (B, MAXQ, 128)).astype(np.uint8)
+        tq = rng.integers(0, rows, (B, MAXQ, 128)).astype(
+            np.int32 if rows == 32 else np.uint8)
     roll = rng.integers(0, 128, shape)
     s = rng.integers(0, 128, shape)
     e = np.minimum(s + rng.integers(0, 70, shape), 127)
@@ -60,6 +66,27 @@ def random_group(seed: int, B: int, NST: int, MAXQ: int, RLP: int, K: int,
     w[rng.random(shape) < 0.2] = 1 << 7             # the packer's filler
     lit8 = rng.integers(0, lit_max, (B, RLP, 128)).astype(np.uint8)
     return qs, qbase, w.view(np.int32), tq, lit8
+
+
+def flat_group(seed: int, group, garbage: bool = False):
+    """v27's layout of a v26 ``group``: each block's first litrows rows
+    (random, 1..RLP) back to back at 32-aligned offsets in one flat buffer
+    with an RLP-row tail. ``garbage`` draws loff anywhere, negative and
+    past the buffer included. Returns (qs, qbase, loff, pctrl, tq, flat)
+    and RLP."""
+    qs, qbase, pctrl, tq, lit8 = group
+    rng = np.random.default_rng(seed)
+    B, RLP = lit8.shape[:2]
+    litrows = rng.integers(1, RLP + 1, B)
+    lr32 = -(-litrows // 32) * 32
+    loff = np.zeros(B, np.int64)
+    loff[1:] = np.cumsum(lr32[:-1])
+    flat = np.zeros((int(loff[-1] + lr32[-1]) + RLP, 128), np.uint8)
+    for b in range(B):
+        flat[loff[b]:loff[b] + litrows[b]] = lit8[b, :litrows[b]]
+    if garbage:
+        loff = rng.integers(-96, len(flat) + 96, B)
+    return (qs, qbase, loff.astype(np.int32), pctrl, tq, flat), RLP
 
 
 @pytest.mark.parametrize("garbage", [False, True])
@@ -75,6 +102,66 @@ def test_kernel_equals_plain_version_on_card(card, variant, garbage):
         torch.cuda.synchronize()
         assert CE.KERNELS[variant].launches == before + 1
         assert torch.equal(out, CE.REFERENCES[variant](*args))
+
+
+@pytest.mark.parametrize("garbage", [False, True])
+def test_v27_equals_plain_version_on_card(card, garbage):
+    for seed, (B, NST, MAXQ, RLP) in enumerate(((3, 2, 24, 256),
+                                                (16, 4, 96, 640))):
+        host, RLP = flat_group(seed, random_group(
+            seed, B, NST, MAXQ, RLP, 2, True, garbage=garbage), garbage)
+        args = CE.group_from_numpy(*host, device=card)
+        before = CE.v27.launches
+        out = CE.v27(*args, RLP=RLP)
+        torch.cuda.synchronize()
+        assert CE.v27.launches == before + 1
+        assert torch.equal(out, CE.v27_reference(*args, RLP=RLP))
+
+
+@pytest.mark.parametrize("garbage", [False, True])
+def test_v13_equals_plain_version_on_card(card, garbage):
+    for seed, (B, NT, MAXQ, RLP) in enumerate(((3, 1, 8, 256),
+                                               (16, 4, 48, 512))):
+        args = CE.group_from_numpy(*random_group(
+            seed, B, NT, MAXQ, RLP, 1, False, garbage=garbage, rows=32),
+            device=card)
+        before = CE.v13.launches
+        out = CE.v13(*args)
+        torch.cuda.synchronize()
+        assert CE.v13.launches == before + 1
+        assert torch.equal(out, CE.v13_reference(*args))
+
+
+def _card_corpus(seed: int) -> bytes:
+    rng = np.random.default_rng(seed)
+    return (b"card test " * 9000
+            + rng.integers(0, 256, 50_000, dtype=np.uint8).tobytes()) * 3
+
+
+@pytest.mark.parametrize("hint_variant", [19, 26])
+def test_hint_e2e_on_card(card, tmp_path, hint_variant):
+    data = _card_corpus(5)
+    arc = Z.compress(data, Z.EncodeOpts(level=3, block_size=16384))
+    path = Z.write_hints(arc, str(tmp_path / "a.zxh"), variant=hint_variant)
+    kern = CE.KERNELS[27 if hint_variant == 26 else 19]
+    before = kern.launches
+    assert Z.decompress_e2e(arc, hint=path, dispatch=4) == data
+    assert kern.launches - before == -(-(-(-len(data) // 16384)) // 4)
+    assert Z.decompress_e2e(arc, device=card, hint=path, dispatch=4,
+                            _collect="fingerprint") == \
+        Z.decompress_e2e(arc, device="cpu", hint=path, dispatch=4,
+                         _collect="fingerprint")
+
+
+@pytest.mark.parametrize("block", [4096, 16384])
+def test_serial_on_card(card, block):
+    data = _card_corpus(6)
+    arc = Z.compress(data, Z.EncodeOpts(level=3, block_size=block))
+    kern = CE.v13 if block < 16384 else CE.v19
+    before = kern.launches
+    out = Z.ops.decompress(arc)
+    assert out == data == Z.ops.decompress(arc, device="cpu")
+    assert kern.launches - before == -(-(-(-len(data) // block)) // 16)
 
 
 @pytest.mark.parametrize("variant", [19, 26])

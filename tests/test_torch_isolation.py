@@ -27,7 +27,10 @@ def _py_files():
 
 def test_import_leaves_jax_and_zxc_tpu_out():
     code = ("import sys, zxc_tpu_torch, zxc_tpu_torch.ops.copy_engine, "
-            "zxc_tpu_torch.ops.device_pipeline, zxc_tpu_torch.runtime\n"
+            "zxc_tpu_torch.ops.device_pipeline, zxc_tpu_torch.runtime, "
+            "zxc_tpu_torch.ops.hints, zxc_tpu_torch.ops.batch, "
+            "zxc_tpu_torch.ops.serial, zxc_tpu_torch.codec.block_decode, "
+            "zxc_tpu_torch.codec.huffman, zxc_tpu_torch.format.varint\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'jaxlib')) or m == 'zxc_tpu' "
             "or m.startswith('zxc_tpu.'))\n"
@@ -58,16 +61,20 @@ def test_no_jax_or_zxc_tpu_import_in_sources():
                 assert top not in ("jax", "jaxlib", "zxc_tpu"), (path, n)
 
 
-def test_no_device_means_cuda_and_raises_without_it():
+def test_no_device_means_cuda_and_raises_without_it(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the no-CUDA refusal "
                     "cannot be observed")
     arc = Z.compress(b"abc" * 10000, Z.EncodeOpts(level=3, block_size=16384))
-    with pytest.raises(RuntimeError, match="CUDA"):
-        Z.decompress_e2e(arc)
-    with pytest.raises(RuntimeError, match="CUDA"):
-        Z.decompress_e2e(arc, device="cuda")
-    assert Z.decompress_e2e(arc, device="cpu") == b"abc" * 10000
+    hint = Z.write_hints(arc, str(tmp_path / "a.zxh"))
+    for call in (lambda **kw: Z.decompress_e2e(arc, **kw),
+                 lambda **kw: Z.decompress_e2e(arc, hint=hint, **kw),
+                 lambda **kw: Z.ops.decompress(arc, **kw)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call(device="cuda")
+        assert call(device="cpu") == b"abc" * 10000
 
 
 def test_wrappers_refuse_other_devices():
@@ -79,8 +86,16 @@ def test_wrappers_refuse_other_devices():
     for fn in (CE.v19, CE.v26):
         with pytest.raises(ValueError, match="cuda or cpu"):
             fn(*t)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        CE.v27(t[0], t[1], t[0][:, 0].contiguous(), t[2], t[3], t[4][0],
+               RLP=128)
+    t13 = t[:3] + [t[3].to(torch.int32)] + t[4:]
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        CE.v13(*t13)
     with pytest.raises(ValueError):
         Z.decompress_e2e(b"", device="meta")
+    with pytest.raises(ValueError):
+        Z.ops.decompress(b"", device="meta")
 
 
 def test_missing_native_library_raises(tmp_path, monkeypatch):

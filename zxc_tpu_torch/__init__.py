@@ -4,8 +4,11 @@ It imports torch and numpy, never jax and nothing of the ``zxc_tpu``
 package: the host layers it needs (constants, errors, format readers, the
 native runtime) are its own copies. The entry point runs on the card
 unless the caller passes ``device="cpu"``, which runs the kernels' plain
-PyTorch versions.
+PyTorch versions: ``decompress_e2e`` (cold, or with a ``.zxh`` hint from
+``write_hints``) and ``ops.decompress`` (the serial route).
 """
 from .errors import ZxcError  # noqa: F401
 from .codec.frame import DecodeOpts, EncodeOpts, compress  # noqa: F401
 from .ops.device_pipeline import decompress_e2e  # noqa: F401
+from .ops.hints import write_hints, HintFile  # noqa: F401
+from . import ops  # noqa: F401

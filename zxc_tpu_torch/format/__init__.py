@@ -1,2 +1,2 @@
-"""Wire-format readers the device decode path needs (headers, hashes,
+"""Wire-format readers the decode paths need (headers, hashes, varints,
 dictionary id)."""

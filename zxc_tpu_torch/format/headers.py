@@ -1,7 +1,6 @@
-"""File header and footer (FORMAT.md sections 3 and 8), the port's copy of
-the readers in ``zxc_tpu.format.headers`` (reference parser:
-zxc_common.c:546-720). Block headers are walked natively
-(``zxch_walk_frame``)."""
+"""File header, block header, GLO/GHI sub-header and footer (FORMAT.md
+sections 3-5 and 8), the port's copy of the readers in
+``zxc_tpu.format.headers`` (reference parser: zxc_common.c:546-720)."""
 from __future__ import annotations
 
 import struct
@@ -11,7 +10,7 @@ from .. import constants as C
 from ..errors import (ZxcError, ERROR_SRC_TOO_SMALL, ERROR_BAD_MAGIC,
                       ERROR_BAD_VERSION, ERROR_BAD_HEADER,
                       ERROR_BAD_BLOCK_SIZE)
-from .hashes import hash16
+from .hashes import hash8, hash16
 
 
 @dataclass
@@ -48,3 +47,45 @@ def read_file_footer(src: bytes) -> tuple[int, int]:
     if len(src) < C.FILE_FOOTER_SIZE:
         raise ZxcError(ERROR_SRC_TOO_SMALL, "footer truncated")
     return struct.unpack_from("<QI", src, len(src) - C.FILE_FOOTER_SIZE)
+
+
+@dataclass
+class BlockHeader:
+    block_type: int
+    comp_size: int
+
+
+def read_block_header(src: bytes, pos: int = 0) -> BlockHeader:
+    if len(src) - pos < C.BLOCK_HEADER_SIZE:
+        raise ZxcError(ERROR_SRC_TOO_SMALL, "block header truncated")
+    hdr = bytes(src[pos:pos + C.BLOCK_HEADER_SIZE])
+    tmp = bytearray(hdr)
+    tmp[7] = 0
+    if hdr[7] != hash8(bytes(tmp)):
+        raise ZxcError(ERROR_BAD_HEADER, "block header CRC8")
+    return BlockHeader(hdr[0], struct.unpack_from("<I", hdr, 3)[0])
+
+
+@dataclass
+class GnrHeader:
+    n_sequences: int
+    n_literals: int
+    enc_lit: int
+    enc_litlen: int
+    enc_mlen: int
+    enc_off: int
+
+
+def read_gnr_header(payload: bytes, n_sections: int
+                    ) -> tuple[GnrHeader, list[tuple[int, int]]]:
+    """GLO/GHI sub-header and its section descriptors, each (comp_size,
+    raw_size)."""
+    need = C.GNR_HEADER_SIZE + n_sections * C.SECTION_DESC_SIZE
+    if len(payload) < need:
+        raise ZxcError(ERROR_BAD_HEADER, "GLO/GHI sub-header truncated")
+    gh = GnrHeader(*struct.unpack_from("<II4B", payload, 0))
+    descs = []
+    for k in range(n_sections):
+        packed, = struct.unpack_from("<Q", payload, C.GNR_HEADER_SIZE + 8 * k)
+        descs.append((packed & 0xFFFFFFFF, packed >> 32))
+    return gh, descs

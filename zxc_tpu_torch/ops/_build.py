@@ -49,5 +49,10 @@ def kernels() -> ctypes.CDLL:
         for fn in (L.zxc_copy_engine_v19, L.zxc_copy_engine_v26):
             fn.restype = ci
             fn.argtypes = [vp] * 6 + [ci] * 6 + [vp]
+        L.zxc_copy_engine_v27.restype = ci
+        L.zxc_copy_engine_v27.argtypes = ([vp] * 7 + [ci] * 6
+                                          + [ctypes.c_int64, vp])
+        L.zxc_copy_engine_v13.restype = ci
+        L.zxc_copy_engine_v13.argtypes = [vp] * 6 + [ci] * 5 + [vp]
         _lib = L
         return _lib

@@ -1,20 +1,27 @@
 """End-to-end device decode: archive bytes -> decoded bytes, the port of
-``zxc_tpu.ops.device_pipeline`` (cold path, no hint).
+``zxc_tpu.ops.device_pipeline`` (cold path and hint path).
 
 * **frame walk** (``walk_frame``): native header walk plus payload and
   global checksum validation;
-* **one native call per block** (``runtime.v19_prep_block``): section
-  parse, entropy literal decode, piece resolution and lane-op packing,
-  written straight into a pooled dispatch group's pinned host buffers;
-  a thread pool runs the calls (ctypes releases the GIL);
+* **cold path, one native call per block** (``runtime.v19_prep_block``):
+  section parse, entropy literal decode, piece resolution and lane-op
+  packing, written straight into a pooled dispatch group's pinned host
+  buffers; a thread pool runs the calls (ctypes releases the GIL);
+* **hint path** (``hint=``, a ``.zxh`` from ``hints.write_hints``): the
+  control ships from the hint once and stays on the device; per decode the
+  host only rebuilds the literal windows from the archive (the hint's
+  lit8 replay). With v26 geometry the windows go into one ragged flat
+  buffer per group, one native call per worker stripe, for the v27
+  kernel; otherwise into the per-block lit8 of the hint's own kernel;
 * **one CUDA stream**: each group's buffers go over with non-blocking H2D
-  copies and the copy-engine kernel (``copy_engine.v26`` or ``v19``) runs
-  behind them on the same stream, while the host preps the next groups.
-  A CUDA event recorded after a slot's copies gates the slot's reuse.
+  copies and the copy-engine kernel runs behind them on the same stream,
+  while the host preps the next groups. A CUDA event recorded after a
+  slot's copies gates the slot's reuse.
 
-Shapes are sized from a sample of blocks with margin; a block that
+Cold shapes are sized from a sample of blocks with margin; a block that
 overflows them raises ``ShapeOverflow`` and the decode retries with grown
-shapes. The prep buffers are byte-identical to the JAX package's.
+shapes (a hint pins its shapes, so there an overflow is a ZxcError). The
+prep buffers are byte-identical to the JAX package's.
 """
 from __future__ import annotations
 
@@ -41,6 +48,7 @@ from ..codec import huffman
 from ..codec.frame import DecodeOpts
 from .. import runtime
 from . import copy_engine
+from .hints import HintFile
 
 
 @dataclass
@@ -165,15 +173,21 @@ _pool_lock = threading.Lock()
 _pool: dict = {}
 
 
-def _pool_acquire(key) -> GroupBuffers:
+def _pool_acquire(key, make=None):
     with _pool_lock:
         free = _pool.get(key)
         if free:
             return free.pop()
-    return GroupBuffers(*key)
+    return make() if make is not None else GroupBuffers(*key)
 
 
-def _pool_release(buf: GroupBuffers, key, cap: int = 64) -> None:
+def _flat_buffer(rows: int, pin: bool) -> torch.Tensor:
+    """v27's flat lit buffer of one dispatch group (pooled like groups)."""
+    return _pool_acquire(("flat", rows, pin), lambda: torch.zeros(
+        (rows, 128), dtype=torch.uint8, pin_memory=pin))
+
+
+def _pool_release(buf, key, cap: int = 64) -> None:
     with _pool_lock:
         free = _pool.setdefault(key, [])
         if len(free) < cap:
@@ -183,23 +197,21 @@ def _pool_release(buf: GroupBuffers, key, cap: int = 64) -> None:
 class DevicePipeline:
     """Archive -> device decode pipeline for one frame geometry: splits
     blocks into dispatch groups of ``dispatch`` blocks, preps each group
-    with a native thread pool and hands it to the device as it completes."""
+    with a native thread pool and hands it to the device as it completes.
+
+    ``variant``: 26 or 19 for the cold path. With a ``hint``, None or 27
+    selects v27 when the hint carries v26 geometry and RLP % 32 == 0, and
+    the hint's own kernel otherwise; 19 or 26 must name the hint's own."""
 
     def __init__(self, walk: FrameWalk, archive: bytes, K: int = 2,
                  dispatch: int = 16, workers: int | None = None,
-                 variant: int = 26):
+                 variant: int | None = 26, hint: HintFile | None = None):
         if walk.block_size % 16384:
             raise ZxcError(ERROR_CORRUPT_DATA,
                            "e2e pipeline needs block_size % 16384 == 0")
-        if variant not in (19, 26):
-            raise ValueError(f"variant must be 19 or 26, not {variant}")
         self.walk = walk
         self.src = np.frombuffer(archive, np.uint8)
         self.K = K
-        # 26 = unified self-referential window (lit8 holds literals and
-        # patterns only; matches from earlier supertiles read the kernel's
-        # own decoded rows); 19 = the materializing contract
-        self.variant = variant
         self.B = dispatch
         self.NST = walk.block_size // 16384
         self.workers = workers or min(os.cpu_count() or 1, 8)
@@ -207,12 +219,39 @@ class DevicePipeline:
         self.RLP = 0
         self.NG32 = 0
         self.totals = None   # (n_groups*B,) decoded sizes, set by run()
+        self.hint = hint
+        if hint is None:
+            # 26 = unified self-referential window (lit8 holds literals and
+            # patterns only; matches from earlier supertiles read the
+            # kernel's own decoded rows); 19 = the materializing contract
+            if variant not in (19, 26):
+                raise ValueError(f"variant must be 19 or 26, not {variant}")
+            self.variant = variant
+            return
+        g = hint.geo
+        if g.block_size != walk.block_size or g.nb != walk.n_blocks:
+            raise ZxcError(ERROR_CORRUPT_DATA,
+                           "hint geometry does not match frame")
+        if variant not in (None, 27, g.variant):
+            raise ValueError(f"the hint carries v{g.variant} control; "
+                             f"variant {variant} cannot run it")
+        self.K, self.MAXQ, self.RLP, self.NG32 = g.K, g.MAXQ, g.RLP, g.NG32
+        self.variant = (27 if variant in (None, 27) and g.variant == 26
+                        and g.RLP % 32 == 0 else g.variant)
+        if self.variant == 27:
+            self.loff, self.lr32, self.rows_tot = hint.flat_geometry(dispatch)
 
     @property
     def n_groups(self) -> int:
         return -(-self.walk.n_blocks // self.B)
 
     def _key(self, B: int, pin: bool):
+        if self.hint is not None:
+            # the control ships from the hint: only lit8 (none for v27,
+            # whose lit rows go to the flat buffer) and totals are host
+            # buffers here
+            return (B, self.NST, 0, 0, 0 if self.variant == 27 else self.RLP,
+                    self.K, pin)
         return (B, self.NST, self.MAXQ, self.NG32, self.RLP, self.K, pin)
 
     # -- shape discovery ---------------------------------------------------
@@ -257,13 +296,15 @@ class DevicePipeline:
         self.RLP = _round_up(int(o.need_rlp * 1.5) + 144, 128)
         self.NG32 = _ng32(self.MAXQ)
 
+    def _payload(self, i: int) -> np.ndarray:
+        p0 = int(self.walk.pos[i])
+        return self.src[p0:p0 + int(self.walk.comp[i])]
+
     def _prep_into(self, i: int, buf: GroupBuffers, j: int, MAXQ: int,
                    NG32: int, RLP: int):
         w = self.walk
-        p0 = int(w.pos[i])
-        payload = self.src[p0:p0 + int(w.comp[i])]
         r = runtime.v19_prep_block(
-            payload, int(w.typ[i]), w.block_size,
+            self._payload(i), int(w.typ[i]), w.block_size,
             buf.qs[j], buf.qbase[j], buf.pctrl[j], buf.tq[j], buf.lit8[j],
             MAXQ, NG32, RLP, K=self.K,
             dict_buf=w.dict_buf, dict_cl=w.dict_cl,
@@ -273,14 +314,22 @@ class DevicePipeline:
             buf.totals[j] = total
         return total, nq, maxrow, litrows
 
+    def _zero_stale(self, buf: GroupBuffers, j: int, litrows: int) -> None:
+        # rows [litrows, lit_hi) hold a previous block's bytes after pool
+        # reuse: zero them so the group equals a fresh prep
+        if buf.lit_hi[j] > litrows:
+            buf.lit8[j, litrows:buf.lit_hi[j]] = 0
+        buf.lit_hi[j] = litrows
+
     def _prep_block(self, buf: GroupBuffers, g: int, j: int) -> None:
         i = g * self.B + j
         if i >= self.walk.n_blocks:   # padding row: empty block
             buf.qs[j] = 0
             buf.totals[j] = 0
-            if buf.lit_hi[j]:
-                buf.lit8[j, :buf.lit_hi[j]] = 0
-                buf.lit_hi[j] = 0
+            self._zero_stale(buf, j, 0)
+            return
+        if self.hint is not None:
+            self._replay_block(buf, i, j)
             return
         total, nq, maxrow, litrows = self._prep_into(
             i, buf, j, self.MAXQ, self.NG32, self.RLP)
@@ -292,17 +341,75 @@ class DevicePipeline:
                 raise ShapeOverflow(max(nq, self.MAXQ),
                                     max(maxrow, litrows, self.RLP))
             raise ZxcError(int(total), "device prep")
-        if buf.lit_hi[j] > litrows:
-            buf.lit8[j, litrows:buf.lit_hi[j]] = 0
-        buf.lit_hi[j] = litrows
+        self._zero_stale(buf, j, litrows)
 
-    def prep_group(self, g: int) -> GroupBuffers:
+    def _replay_block(self, buf: GroupBuffers, i: int, j: int) -> None:
+        """Hint path, v19/v26: block i's literal window into lit8[j]."""
+        w, h = self.walk, self.hint
+        lr = runtime.v19_lit8_load(
+            self._payload(i), int(w.typ[i]), w.block_size, h.plan_slice(i),
+            int(h.plan_off[i + 1] - h.plan_off[i]), int(h.litlen[i]),
+            buf.lit8[j], self.RLP, dict_buf=w.dict_buf, dict_cl=w.dict_cl)
+        if lr < 0:
+            buf.lit_hi[j] = buf.lit8.shape[1]   # it may have written any row
+            raise ZxcError(lr, "hint lit8 replay")
+        self._zero_stale(buf, j, lr)
+
+    def _replay_stripe(self, flat: np.ndarray, g: int, k: int,
+                       nw: int) -> None:
+        """Hint path, v27: blocks g*B+k, g*B+k+nw, ... of group g into the
+        group's flat buffer, one native call; each block's rows past its
+        own are zeroed up to its 32-row alignment."""
+        w, h = self.walk, self.hint
+        i0, i1 = g * self.B, min((g + 1) * self.B, w.n_blocks)
+        rc = runtime.v19_lit8_load_batch(
+            self.src, w.pos, w.comp, w.typ, i0 + k, i1, nw, w.block_size,
+            h.plans, h.plan_off, h.litlen, flat, self.loff, self.RLP,
+            zrows=self.lr32, dict_buf=w.dict_buf, dict_cl=w.dict_cl)
+        if rc < 0:
+            raise ZxcError(rc, "hint lit8 batch replay")
+
+    def prep_group(self, g: int):
         """Prep dispatch group ``g`` alone into fresh host buffers (kernel
-        checks and tests); call ``size_shapes`` first."""
+        checks and tests); call ``size_shapes`` first on the cold path.
+        Returns the group's GroupBuffers and, on the hint path, the
+        kernel's arguments as CPU tensors."""
         buf = GroupBuffers(*self._key(self.B, False))
+        if self.variant == 27:
+            flat = torch.zeros((self.rows_tot, 128), dtype=torch.uint8)
+            for k in range(self.workers):
+                self._replay_stripe(flat.numpy(), g, k, self.workers)
+            self._hint_totals(buf, g)
+            return buf, self._group_args(buf, flat, g, torch.device("cpu"))
         for j in range(self.B):
             self._prep_block(buf, g, j)
-        return buf
+        if self.hint is not None:
+            self._hint_totals(buf, g)
+            return buf, self._group_args(buf, None, g, torch.device("cpu"))
+        return buf, buf.args
+
+    def _hint_totals(self, buf: GroupBuffers, g: int) -> None:
+        i0, i1 = g * self.B, min((g + 1) * self.B, self.walk.n_blocks)
+        buf.totals[:i1 - i0] = self.hint.totals[i0:i1]
+        buf.totals[i1 - i0:] = 0
+
+    def _group_args(self, buf: GroupBuffers, flat, g: int,
+                    device: torch.device):
+        """The kernel's arguments for group g on ``device``: the host
+        buffers' H2D copies (non-blocking from pinned memory) behind the
+        hint's device-resident control where there is a hint."""
+        cuda = device.type == "cuda"
+
+        def ship(t):
+            return t.to(device, non_blocking=True) if cuda else t
+
+        if self.hint is None:
+            return tuple(ship(t) for t in buf.args)
+        qs, qbase, pctrl, tq = self.hint.device_ctrl(g, self.B, device)
+        if self.variant == 27:
+            return (qs, qbase, self.hint.device_loff(g, self.B, device),
+                    pctrl, tq, ship(flat))
+        return (qs, qbase, pctrl, tq, ship(buf.t_lit8))
 
     # -- pipeline ----------------------------------------------------------
     def run(self, consume, device: torch.device, pools: int = 8,
@@ -318,26 +425,42 @@ class DevicePipeline:
             return carry
         cuda = device.type == "cuda"
         key = self._key(self.B, cuda)
+        v27 = self.variant == 27
         # two slots at least: group g+1 is prepped while group g is handed
         # to the device
-        bufs = [_pool_acquire(key)
-                for _ in range(min(max(pools, 2), n_groups))]
+        n_slots = min(max(pools, 2), n_groups)
+        bufs = [_pool_acquire(key) for _ in range(n_slots)]
+        flats = [_flat_buffer(self.rows_tot, cuda) for _ in range(n_slots)
+                 ] if v27 else [None] * n_slots
         # slot s may be refilled only once the H2D copies that read its
         # pinned buffers have completed: prep would otherwise overwrite
         # bytes still in flight (silent corruption no CPU test can see)
-        copied = [None] * len(bufs)
+        copied = [None] * n_slots
         try:
             with ThreadPoolExecutor(self.workers) as ex:
                 futs = {}
 
                 def submit(g):
                     if g < n_groups and g not in futs:
-                        slot = g % len(bufs)
+                        slot = g % n_slots
                         if copied[slot] is not None:
                             copied[slot].synchronize()
                             copied[slot] = None
-                        futs[g] = [ex.submit(self._prep_block, bufs[slot], g,
-                                             j) for j in range(self.B)]
+                        if self.hint is not None:
+                            self._hint_totals(bufs[slot], g)
+                        if v27:
+                            # rows past the group's last block hold an
+                            # earlier group's bytes after pool reuse
+                            flat = flats[slot].numpy()
+                            last = min((g + 1) * self.B, self.walk.n_blocks) - 1
+                            flat[self.loff[last] + self.lr32[last]:] = 0
+                            nw = self.workers
+                            futs[g] = [ex.submit(self._replay_stripe, flat,
+                                                 g, k, nw) for k in range(nw)]
+                        else:
+                            futs[g] = [ex.submit(self._prep_block,
+                                                 bufs[slot], g, j)
+                                       for j in range(self.B)]
 
                 try:
                     submit(0)
@@ -345,17 +468,18 @@ class DevicePipeline:
                         submit(g + 1)
                         for f in futs.pop(g):
                             f.result()   # raises ShapeOverflow / ZxcError
-                        buf = bufs[g % len(bufs)]
+                        slot = g % n_slots
+                        buf = bufs[slot]
                         self.totals[g * self.B:(g + 1) * self.B] = buf.totals
+                        dev_args = self._group_args(buf, flats[slot], g,
+                                                    device)
                         if cuda:
-                            dev_args = tuple(t.to(device, non_blocking=True)
-                                             for t in buf.args)
                             tot = buf.t_totals.to(device, non_blocking=True)
                             ev = torch.cuda.Event()
                             ev.record()
-                            copied[g % len(bufs)] = ev
+                            copied[slot] = ev
                         else:
-                            dev_args, tot = buf.args, buf.t_totals.clone()
+                            tot = buf.t_totals.clone()
                         carry = consume(dev_args, tot, g, carry)
                 finally:
                     for fs in futs.values():   # stop preps still queued
@@ -367,26 +491,32 @@ class DevicePipeline:
                     ev.synchronize()
             for b in bufs:
                 _pool_release(b, key)
+            if v27:
+                for f in flats:
+                    _pool_release(f, ("flat", self.rows_tot, cuda))
         return carry
 
 
 @functools.lru_cache(maxsize=32)
-def _group_fns(block: int, dispatch: int, K: int, variant: int,
+def _group_fns(block: int, dispatch: int, K: int, variant: int, RLP: int,
                device: torch.device):
     """Per-group kernel+fingerprint and kernel-only callables for one
-    geometry. The fingerprints are JAX's: f1 = sum of the valid bytes,
-    f2 = sum of byte * (position % 8191) over each block, both mod 2^32;
-    they accumulate in int64 on the device (16 x 64 KiB x 255 x 8190 per
-    group is far inside it) and are masked once at the end."""
-    kern = copy_engine.KERNELS[variant]
+    geometry (``RLP`` is read by v27 only). The fingerprints are JAX's:
+    f1 = sum of the valid bytes, f2 = sum of byte * (position % 8191) over
+    each block, both mod 2^32; they accumulate in int64 on the device
+    (16 x 64 KiB x 255 x 8190 per group is far inside it) and are masked
+    once at the end."""
+    kern = functools.partial(copy_engine.KERNELS[variant], K=K)
+    if variant == 27:
+        kern = functools.partial(kern, RLP=RLP)
     flatpos = torch.arange(block, device=device)
     wgt = flatpos % 8191
 
     def group_out(args):
-        return kern(*args, K=K)
+        return kern(*args)
 
     def group_fp(args, tot, f1, f2):
-        flat = kern(*args, K=K).view(dispatch, block).long()
+        flat = kern(*args).view(dispatch, block).long()
         flat = flat * (flatpos < tot[:, None])
         return f1 + flat.sum(), f2 + (flat * wgt).sum()
 
@@ -411,31 +541,36 @@ def decompress_e2e(archive: bytes, opts: DecodeOpts | None = None, *,
     """One-shot end-to-end device decode (every phase on the clock).
 
     ``device``: None means ``cuda`` (raises when CUDA is absent);
-    ``"cpu"`` runs the kernels' plain versions. ``variant``: 26 (the cold
-    default; 27, the JAX package's hint-path default, means 26 without a
-    hint) or 19. ``hint`` is not supported yet.
+    ``"cpu"`` runs the kernels' plain versions. ``hint``: a ``.zxh`` path
+    or a ``HintFile`` of this archive (``hints.write_hints``); a hint that
+    does not match the archive, or is corrupt, raises ZxcError.
+    ``variant``: without a hint 26 (the cold default; 27 means 26 there)
+    or 19. With a hint, None or 27 runs v27 when the hint carries v26
+    geometry with RLP % 32 == 0 and the hint's own kernel otherwise; 19 or
+    26 must name the hint's own kernel. ``K`` is the hint's when there is
+    one.
 
     ``_collect``:
       * ``"bytes"`` — return the decoded ``bytes``;
       * ``"fingerprint"`` — keep outputs on the device and return
         ``(f1, f2, n_blocks, decompressed_size)``.
     ``_phases``, when given, receives wall seconds per phase: ``walk_size``
-    (frame walk, checksums, shape sizing), ``run`` (prep, H2D and kernels
-    issued), ``collect`` (device sync and readback) and ``total``.
+    (hint load, frame walk, checksums, shape sizing), ``run`` (prep, H2D
+    and kernels issued), ``collect`` (device sync and readback) and
+    ``total``.
     """
-    if hint is not None:
-        raise NotImplementedError(
-            "hint= (the .zxh piece-plan path and its v27 kernel) is the next "
-            "slice of the PyTorch port")
     if _collect not in ("bytes", "fingerprint"):
         raise ValueError(f"_collect must be 'bytes' or 'fingerprint', "
                          f"not {_collect!r}")
     dev = _device(device)
     t0 = time.perf_counter()
-    variant = 26 if variant in (None, 27) else variant
+    if isinstance(hint, (str, bytes, os.PathLike)):
+        hint = HintFile(os.fspath(hint), archive)
+    if hint is None and variant in (None, 27):
+        variant = 26
     w = walk_frame(archive, opts)
     pipe = DevicePipeline(w, archive, K=K, dispatch=dispatch,
-                          workers=workers, variant=variant)
+                          workers=workers, variant=variant, hint=hint)
     cuda = dev.type == "cuda"
     stream = torch.cuda.Stream(dev) if cuda else None
     with torch.cuda.stream(stream) if cuda else contextlib.nullcontext():
@@ -444,8 +579,9 @@ def decompress_e2e(archive: bytes, opts: DecodeOpts | None = None, *,
                 if pipe.MAXQ == 0:
                     pipe.size_shapes()
                 t1 = time.perf_counter()
-                group_fp, group_out = _group_fns(w.block_size, dispatch, K,
-                                                 variant, dev)
+                group_fp, group_out = _group_fns(w.block_size, dispatch,
+                                                 pipe.K, pipe.variant,
+                                                 pipe.RLP, dev)
                 if _collect == "fingerprint":
                     def consume(args, tot, g, carry):
                         return group_fp(args, tot, *carry)
@@ -460,6 +596,9 @@ def decompress_e2e(archive: bytes, opts: DecodeOpts | None = None, *,
                     res = pipe.run(consume, dev, carry=[])
                 break
             except ShapeOverflow as o:
+                if hint is not None:   # a hint pins its shapes
+                    raise ZxcError(ERROR_CORRUPT_DATA,
+                                   "hint geometry overflow") from None
                 pipe.grow(o)
         else:
             raise ZxcError(ERROR_CORRUPT_DATA, "shape sizing did not converge")

@@ -1,0 +1,336 @@
+"""Serial copy-engine route of ``ops.batch.decompress``: the host half of
+``zxc_tpu/ops/pallas_decode.py`` for the port.
+
+Per block the resolver's pure pieces (``runtime.resolve_pieces(
+device_pure=True, max_frag=1)``) go through the native lane-op splitter
+and a numpy packer into the copy engine's control: ``pack_blocks_v12``
+for v13 (one op per slot, 32-row tiles, blocks under 16 KiB) and
+``pack_blocks_v19`` for v19 (multi-op slots, 128-row supertiles). The
+packers are the JAX package's, copied bit for bit. Each dispatch group
+goes to the device once and runs one kernel launch
+(``copy_engine.v13`` / ``v19``); the output bytes are the kernels' int32
+tiles reduced mod 256, as the JAX consumers reduce them.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..errors import ZxcError, ERROR_CORRUPT_DATA
+from .. import runtime
+from . import copy_engine
+
+
+def lane_ops_blocks(pieces_list, totals):
+    """Per-block native lane-op emission (``zxch_lane_ops``). Returns a
+    list of (rows, roll, s, e, tile_start) tuples."""
+    per = []
+    for (po, pc, ps, pk), total in zip(pieces_list, totals):
+        r = runtime.lane_ops(po, pc, ps, pk, int(total))
+        if r is None:
+            raise ZxcError(ERROR_CORRUPT_DATA, "lane_ops budget exceeded")
+        per.append(r)
+    return per
+
+
+def pack_blocks_v12(pieces_list, lit_list, totals, block: int,
+                    per=None, MAXQ=None, RL=None, quad_align: int = 1):
+    """Pack the v12 dispatch batch.
+
+    Returns (qs, qbase, pctrl, tq, lit8):
+      qs    (B, NT+1)      int32  per-tile quad prefix      (scalar prefetch)
+      qbase (B, MAXQ)      int32  8-aligned lit row base per quad (prefetch)
+      pctrl (B, G32, 128)  int32  pre-transposed packed control for slot
+                                  i = 32*u + k of quad q (bat = 4q + u):
+                                  pctrl[b, 32*(bat>>7)+k, bat&127] =
+                                      roll | s<<7 | (e-1)<<14 | rowrel<<21
+                                  (empty slots: s=1, e-1=0)
+      tq    (B, MAXQ, 128) int32  lane-major target row per slot
+      lit8  (B, RLP, 128)  uint8  lit_full bytes, RLP >= max qbase + 128
+    """
+    B = len(pieces_list)
+    if per is None:
+        per = lane_ops_blocks(pieces_list, totals)
+    NT = block // 4096
+    # pass 1: recover raw ops per (block, tile) from the layered layout and
+    # chunk row-sorted ops into window-constrained quads
+    blocks = []
+    maxq = 1
+    maxrow = 0
+    for (rows, rl, s, e, tile_start) in per:
+        nb = len(rows)
+        quads = []          # per tile: list of (base, ops[(rowrel,rl,s,e1,tgt)])
+        qs_t = [0]
+        for t in range(len(tile_start) - 1):
+            b0, b1 = tile_start[t], tile_start[t + 1]
+            er = rows[b0:b1].reshape(-1)
+            es = s[b0:b1].reshape(-1)
+            ee = e[b0:b1].reshape(-1)
+            erl = rl[b0:b1].reshape(-1)
+            live = np.nonzero(ee > es)[0] if b1 > b0 else np.zeros(0, int)
+            tgt = live & 31
+            order = np.argsort(er[live], kind="stable")
+            lr = er[live][order]
+            lops = np.stack([lr, erl[live][order], es[live][order],
+                             ee[live][order] - 1, tgt[order]], axis=1) \
+                if len(live) else np.zeros((0, 5), np.int64)
+            i = 0
+            n = len(lops)
+            while i < n:
+                # 16-aligned base: bf16 sublane tiling requires the dynamic
+                # window start be a provable multiple of 16 (pl.multiple_of)
+                base = int(lops[i, 0]) & ~15
+                j = min(i + 128, n)
+                # shrink until the window fits (rows are sorted)
+                while lops[j - 1, 0] - base > 127:
+                    j -= 1
+                quads.append((base, lops[i:j]))
+                if len(quads[-1][1]):
+                    maxrow = max(maxrow, base + 128)
+                i = j
+            if n == 0:
+                quads.append((0, lops))
+                maxrow = max(maxrow, 128)
+            while (len(quads) - qs_t[-1]) % quad_align:
+                quads.append((0, np.zeros((0, 5), np.int64)))
+                maxrow = max(maxrow, 128)
+            qs_t.append(len(quads))
+        blocks.append((qs_t, quads))
+        maxq = max(maxq, len(quads))
+    if MAXQ is None:
+        MAXQ = maxq
+    assert maxq <= MAXQ, "MAXQ below a block's quad count"
+    if RL is None:
+        RL = max(maxrow, max(-(-len(lit) // 128) for lit in lit_list) + 1)
+    RLP = max(-(-RL // 16) * 16, -(-maxrow // 16) * 16)
+    NB = MAXQ * 4
+    NG = -(-NB // 128)
+    qs = np.zeros((B, NT + 1), np.int32)
+    qbase = np.zeros((B, MAXQ), np.int32)
+    pctrl = np.full((B, NG * 32, 128), 1 << 7, np.int32)
+    tq = np.zeros((B, MAXQ, 128), np.int32)
+    lit8 = np.zeros((B, RLP, 128), np.uint8)
+    for j, ((qs_t, quads), lit) in enumerate(zip(blocks, lit_list)):
+        qs[j, :len(qs_t)] = qs_t
+        qs[j, len(qs_t):] = qs_t[-1]
+        for q, (base, lops) in enumerate(quads):
+            qbase[j, q] = base
+            if not len(lops):
+                continue
+            i = np.arange(len(lops))
+            bat = 4 * q + (i >> 5)
+            sub = i & 31
+            packed = (lops[:, 1] | (lops[:, 2] << 7) | (lops[:, 3] << 14)
+                      | ((lops[:, 0] - base) << 21))
+            pctrl[j, 32 * (bat >> 7) + sub, bat & 127] = packed
+            tq[j, q, i] = lops[:, 4]
+        flat = np.frombuffer(bytes(lit), np.uint8)
+        lit8[j].reshape(-1)[:len(flat)] = flat
+    return qs, qbase, pctrl, tq, lit8
+
+
+def pad_v12_set(s, MAXQ: int, RLP: int):
+    """Pad one pack_blocks_v12 result to a common (MAXQ, RLP) shape.
+
+    Padded quads never execute (the qs tile prefix never reaches them)
+    and pctrl's filler value 1<<7 encodes an empty slot (s=1 > e-1=0),
+    so padding is equivalent to repacking with explicit MAXQ/RL.
+    """
+    qs, qb, pc, tq, l8 = s
+    NG32 = 32 * (-(-(MAXQ * 4) // 128))
+    qb = np.pad(qb, ((0, 0), (0, MAXQ - qb.shape[1])))
+    tq = np.pad(tq, ((0, 0), (0, MAXQ - tq.shape[1]), (0, 0)))
+    pc = np.pad(pc, ((0, 0), (0, NG32 - pc.shape[1]), (0, 0)),
+                constant_values=1 << 7)
+    l8 = np.pad(l8, ((0, 0), (0, RLP - l8.shape[1]), (0, 0)))
+    return (qs, qb, pc, tq, l8)
+
+
+def pack_blocks_v19(pieces_list, lit_list, totals, block: int,
+                    per=None, MAXQ=None, RL=None, quad_align: int = 2,
+                    K: int = 2):
+    """Pack the v19 dispatch batch: (src,tgt)-grouped multi-op slots.
+
+    Returns (qs, qbase, pctrl, tq, lit8) shaped as pack_blocks_v15's
+    output except pctrl is (B, K*NG32, 128) with one plane per sub-op."""
+    B = len(pieces_list)
+    if per is None:
+        per = lane_ops_blocks(pieces_list, totals)
+    NR = block // 128
+    assert NR % 128 == 0, "v19 needs block >= 16384"
+    GRP = 4
+    NST = NR // 128
+    blocks = []
+    maxq = 1
+    maxrow = 0
+    for (rows, rl, s, e, tile_start) in per:
+        quads = []          # (base, src[], tgt[], ctl[n,K,3])
+        qs_t = [0]
+        nts = len(tile_start) - 1
+        for st in range(NST):
+            parts = []
+            for g in range(GRP):
+                t = st * GRP + g
+                if t >= nts:
+                    break
+                b0, b1 = tile_start[t], tile_start[t + 1]
+                if b1 <= b0:
+                    continue
+                er = rows[b0:b1].reshape(-1)
+                es = s[b0:b1].reshape(-1)
+                ee = e[b0:b1].reshape(-1)
+                erl = rl[b0:b1].reshape(-1)
+                live = np.nonzero(ee > es)[0]
+                if not len(live):
+                    continue
+                tgt = (live & 31) + 32 * g
+                parts.append(np.stack(
+                    [er[live], tgt, erl[live], es[live], ee[live] - 1],
+                    axis=1))
+            if parts:
+                ops = np.concatenate(parts, axis=0)
+                key = ops[:, 0] * 128 + ops[:, 1]
+                order = np.argsort(key, kind="stable")
+                ops = ops[order]
+                ks = key[order]
+                new = np.r_[True, ks[1:] != ks[:-1]]
+                gid = np.cumsum(new) - 1
+                gstart = np.flatnonzero(new)
+                within = np.arange(len(ks)) - gstart[gid]
+                gsizes = np.diff(np.r_[gstart, len(ks)])
+                spg = -(-gsizes // K)
+                sbase = np.r_[0, np.cumsum(spg)[:-1]]
+                slot_of = sbase[gid] + within // K
+                sub_of = within % K
+                n_slots = int(spg.sum())
+                ssrc = np.zeros(n_slots, np.int64)
+                stgt = np.zeros(n_slots, np.int64)
+                sctl = np.zeros((n_slots, K, 3), np.int64)
+                sctl[:, :, 1] = 1          # empty sub-op: s=1 > e-1=0
+                ssrc[slot_of] = ops[:, 0]
+                stgt[slot_of] = ops[:, 1]
+                sctl[slot_of, sub_of, 0] = ops[:, 2]
+                sctl[slot_of, sub_of, 1] = ops[:, 3]
+                sctl[slot_of, sub_of, 2] = ops[:, 4]
+            else:
+                n_slots = 0
+                ssrc = np.zeros(0, np.int64)
+                stgt = np.zeros(0, np.int64)
+                sctl = np.zeros((0, K, 3), np.int64)
+            i = 0
+            n = n_slots
+            while i < n:
+                base = int(ssrc[i]) & ~15
+                j = min(i + 128, n)
+                while ssrc[j - 1] - base > 127:
+                    j -= 1
+                quads.append((base, ssrc[i:j], stgt[i:j], sctl[i:j]))
+                maxrow = max(maxrow, base + 128)
+                i = j
+            if n == 0:
+                quads.append((0, ssrc, stgt, sctl))
+                maxrow = max(maxrow, 128)
+            while (len(quads) - qs_t[-1]) % quad_align:
+                quads.append((0, np.zeros(0, np.int64),
+                              np.zeros(0, np.int64),
+                              np.zeros((0, K, 3), np.int64)))
+                maxrow = max(maxrow, 128)
+            qs_t.append(len(quads))
+        blocks.append((qs_t, quads))
+        maxq = max(maxq, len(quads))
+    if MAXQ is None:
+        MAXQ = maxq
+    assert maxq <= MAXQ, "MAXQ below a block's quad count"
+    if RL is None:
+        RL = max(maxrow, max(-(-len(lit) // 128) for lit in lit_list) + 1)
+    RLP = max(-(-RL // 16) * 16, -(-maxrow // 16) * 16)
+    NB = MAXQ * 4
+    NG32 = 32 * (-(-NB // 128))
+    qs = np.zeros((B, NST + 1), np.int32)
+    qbase = np.zeros((B, MAXQ), np.int32)
+    pctrl = np.full((B, K * NG32, 128), 1 << 7, np.int32)
+    tq = np.zeros((B, MAXQ, 128), np.uint8)   # tgt < 128: u8 quarters H2D
+    lit8 = np.zeros((B, RLP, 128), np.uint8)
+    for j, ((qs_t, quads), lit) in enumerate(zip(blocks, lit_list)):
+        qs[j, :len(qs_t)] = qs_t
+        qs[j, len(qs_t):] = qs_t[-1]
+        for q, (base, ssrc, stgt, sctl) in enumerate(quads):
+            qbase[j, q] = base
+            n = len(ssrc)
+            if not n:
+                continue
+            i = np.arange(n)
+            bat = 4 * q + (i >> 5)
+            sub = i & 31
+            p0 = (sctl[:, 0, 0] | (sctl[:, 0, 1] << 7)
+                  | (sctl[:, 0, 2] << 14) | ((ssrc - base) << 21))
+            pctrl[j, 32 * (bat >> 7) + sub, bat & 127] = p0
+            for kk in range(1, K):
+                pk_ = (sctl[:, kk, 0] | (sctl[:, kk, 1] << 7)
+                       | (sctl[:, kk, 2] << 14))
+                pctrl[j, kk * NG32 + 32 * (bat >> 7) + sub, bat & 127] = pk_
+            tq[j, q, i] = stgt
+        flat = np.frombuffer(bytes(lit), np.uint8)
+        lit8[j].reshape(-1)[:len(flat)] = flat
+    return qs, qbase, pctrl, tq, lit8
+
+
+def pad_v19_set(s, MAXQ: int, RLP: int, K: int = 2):
+    """Pad one pack_blocks_v19 result to a common (MAXQ, RLP) shape."""
+    qs, qb, pc, tq, l8 = s
+    NG32 = 32 * (-(-(MAXQ * 4) // 128))
+    B = pc.shape[0]
+    old_g = pc.shape[1] // K
+    qb = np.pad(qb, ((0, 0), (0, MAXQ - qb.shape[1])))
+    tq = np.pad(tq, ((0, 0), (0, MAXQ - tq.shape[1]), (0, 0)))
+    pc = pc.reshape(B, K, old_g, 128)
+    pc = np.pad(pc, ((0, 0), (0, 0), (0, NG32 - old_g), (0, 0)),
+                constant_values=1 << 7).reshape(B, K * NG32, 128)
+    l8 = np.pad(l8, ((0, 0), (0, RLP - l8.shape[1]), (0, 0)))
+    return (qs, qb, pc, tq, l8)
+
+def _groups(pieces_list, lit_list, totals, dispatch: int):
+    """Split blocks into groups of min(dispatch, nb); the last group pads
+    with copies of the last block whose totals are 0 (as the JAX package
+    pads)."""
+    nb = len(pieces_list)
+    B = min(dispatch, nb)
+    nd = -(-nb // B)
+    pad = nd * B - nb
+    p = list(pieces_list) + [pieces_list[-1]] * pad
+    lits = list(lit_list) + [lit_list[-1]] * pad
+    t = list(totals) + [0] * pad
+    return [(p[d * B:(d + 1) * B], lits[d * B:(d + 1) * B],
+             t[d * B:(d + 1) * B]) for d in range(nd)]
+
+
+def pack_groups(pieces_list, lit_list, totals, block: int, v13: bool,
+                dispatch: int = 16, K: int = 2):
+    """Every dispatch group's packed control for v13 (``pack_blocks_v12``)
+    or v19 (``pack_blocks_v19``), padded to one (MAXQ, RLP) bucket
+    (multiples of 32 quads and 128 rows) as the JAX package's
+    ``decode_blocks_v13`` / ``decode_blocks_v19`` pad them."""
+    groups = _groups(pieces_list, lit_list, totals, dispatch)
+    if v13:
+        raw = [pack_blocks_v12(p, l, t, block, quad_align=2)
+               for p, l, t in groups]
+    else:
+        raw = [pack_blocks_v19(p, l, t, block, K=K) for p, l, t in groups]
+    MAXQ = -(-max(s[1].shape[1] for s in raw) // 32) * 32
+    RLP = -(-max(s[4].shape[1] for s in raw) // 128) * 128
+    if v13:
+        return [pad_v12_set(s, MAXQ, RLP) for s in raw]
+    return [pad_v19_set(s, MAXQ, RLP, K) for s in raw]
+
+
+def decode_groups(groups, totals, block: int, v13: bool,
+                  device: torch.device, K: int = 2) -> list[bytes]:
+    """Run each packed group through its kernel on ``device`` (one launch
+    each) and cut each block's bytes."""
+    outs = []
+    for args in groups:
+        t = copy_engine.group_from_numpy(*args, device=device)
+        outs.append(copy_engine.v13(*t) if v13 else copy_engine.v19(*t, K=K))
+    host = torch.cat(outs).view(-1, block).cpu().numpy()
+    return [host[j, :totals[j]].tobytes() for j in range(len(totals))]
+

@@ -2,11 +2,14 @@
 
 ``zxc_host.cpp`` is a verbatim copy of ``zxc_tpu/runtime/zxc_host.cpp``
 (standard headers and ``immintrin.h`` only). This module binds the symbols
-the device decode path calls: the frame walk and batched payload checksum,
+the device decode paths call: the frame walk and batched payload checksum,
 the fused per-block prep of the copy engine's control
-(``zxch_v19_prep_block`` / ``zxch_v26_prep_block``), the piece resolver
-and lane-op splitter that the prep fuses (exposed for parity tests), and
-the native frame encoder.
+(``zxch_v19_prep_block`` / ``zxch_v26_prep_block``) and its hint-writing
+form (``*_prep_block_plan``), the hint replay of the literal window
+(``zxch_v19_lit8_load[_batch]``), the section parsers of the serial route
+(RLE literals, varint extras, PivCo entropy), the piece resolver and
+lane-op splitter, the host frame decoder (the hint body is itself a
+frame), rapidhash64, and the native frame encoder.
 
 Unlike ``zxc_tpu.runtime`` there is no pure-Python fallback: the port's
 decode path has no Python prep, so a library that cannot be built or
@@ -21,7 +24,7 @@ import threading
 import numpy as np
 
 from ..buildlib import build_shared
-from ..errors import ZxcError, ERROR_BAD_OFFSET
+from ..errors import ZxcError, ERROR_BAD_OFFSET, ERROR_CORRUPT_DATA
 
 _SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "zxc_host.cpp")
 
@@ -72,6 +75,32 @@ def _bind(L: ctypes.CDLL) -> None:
                                       vp, vp]
     L.zxch_v26_prep_block.restype = i64
     L.zxch_v26_prep_block.argtypes = L.zxch_v19_prep_block.argtypes
+    L.zxch_v19_prep_block_plan.restype = i64
+    L.zxch_v19_prep_block_plan.argtypes = (L.zxch_v19_prep_block.argtypes
+                                           + [vp, i64, vp, vp])
+    L.zxch_v26_prep_block_plan.restype = i64
+    L.zxch_v26_prep_block_plan.argtypes = L.zxch_v19_prep_block_plan.argtypes
+    L.zxch_v19_lit8_load.restype = i64
+    L.zxch_v19_lit8_load.argtypes = [vp, u64, ci, u64, vp, u64, vp, vp, i64,
+                                     i64, vp, i64]
+    L.zxch_v19_lit8_load_batch.restype = i64
+    L.zxch_v19_lit8_load_batch.argtypes = [vp, vp, vp, vp, i64, i64, i64, u64,
+                                           vp, u64, vp, vp, vp, vp, vp, vp,
+                                           i64, vp]
+    L.zxch_decompress_frame.restype = i64
+    L.zxch_decompress_frame.argtypes = [vp, u64, u64, ci, ci, vp, u64, vp, vp,
+                                        u64]
+    L.zxch_decompress_frame_mt.restype = i64
+    L.zxch_decompress_frame_mt.argtypes = (L.zxch_decompress_frame.argtypes
+                                           + [ci])
+    L.zxch_rapidhash64.restype = u64
+    L.zxch_rapidhash64.argtypes = [vp, ctypes.c_size_t, u64]
+    L.zxch_rle_decode.restype = ci
+    L.zxch_rle_decode.argtypes = [vp, u64, vp, u64]
+    L.zxch_varint_chain.restype = i64
+    L.zxch_varint_chain.argtypes = [vp, u64, u64, vp]
+    L.zxch_pivco_decode.restype = ci
+    L.zxch_pivco_decode.argtypes = [vp, u64, vp, u64, vp]
 
 
 def lib() -> ctypes.CDLL:
@@ -266,3 +295,146 @@ def v19_prep_block(payload: np.ndarray, block_type: int, block_size: int,
                RLP, ctypes.byref(nq), ctypes.byref(maxrow),
                ctypes.byref(litrows))
     return int(total), int(nq.value), int(maxrow.value), int(litrows.value)
+
+
+def v19_prep_block_plan(payload: np.ndarray, block_type: int,
+                        block_size: int, qs_row: np.ndarray,
+                        qbase_row: np.ndarray, pctrl_row: np.ndarray,
+                        tq_row: np.ndarray, lit8_row: np.ndarray,
+                        MAXQ: int, NG32: int, RLP: int, plan: np.ndarray,
+                        K: int = 2, quad_align: int = 2,
+                        dict_buf: np.ndarray | None = None,
+                        dict_cl: np.ndarray | None = None,
+                        self_ref: bool = False):
+    """``v19_prep_block`` plus the lit8 replay plan of a hint: ``plan`` is
+    an (N, 4) int32 array that receives {kind, dst, src_or_byte, len}
+    records. Returns (total, nq, maxrow, litrows, n_plan, lit_len); total
+    == -16 means the plan array is too small."""
+    L = lib()
+    pl = np.ascontiguousarray(payload, np.uint8)
+    d8, cl8, cl_ptr = _as_dict_args(dict_buf, dict_cl)
+    outs = [ctypes.c_int64(0) for _ in range(5)]
+    nq, maxrow, litrows, n_plan, litlen = outs
+    fn = (L.zxch_v26_prep_block_plan if self_ref
+          else L.zxch_v19_prep_block_plan)
+    total = fn(_ptr(pl), len(pl), block_type, block_size, _ptr(d8), len(d8),
+               cl_ptr, K, quad_align, _ptr(qs_row), _ptr(qbase_row),
+               _ptr(pctrl_row), _ptr(tq_row), _ptr(lit8_row), MAXQ, NG32,
+               RLP, ctypes.byref(nq), ctypes.byref(maxrow),
+               ctypes.byref(litrows), _ptr(plan), len(plan),
+               ctypes.byref(n_plan), ctypes.byref(litlen))
+    return (int(total),) + tuple(int(o.value) for o in outs)
+
+
+def v19_lit8_load(payload: np.ndarray, block_type: int, block_size: int,
+                  plan: np.ndarray, n_plan: int, lit_len: int,
+                  lit8_row: np.ndarray, RLP: int,
+                  dict_buf: np.ndarray | None = None,
+                  dict_cl: np.ndarray | None = None) -> int:
+    """Hint replay of one block's literal window: the archive's literal
+    section decode plus the plan replay, written into ``lit8_row`` (RLP
+    rows of capacity). Returns litrows >= 0 or a negative ZXC error."""
+    L = lib()
+    pl = np.ascontiguousarray(payload, np.uint8)
+    d8, cl8, cl_ptr = _as_dict_args(dict_buf, dict_cl)
+    plan = np.ascontiguousarray(plan, np.int32)
+    return int(L.zxch_v19_lit8_load(
+        _ptr(pl), len(pl), block_type, block_size, _ptr(d8), len(d8), cl_ptr,
+        _ptr(plan), n_plan, lit_len, _ptr(lit8_row), RLP))
+
+
+def v19_lit8_load_batch(src: np.ndarray, pos: np.ndarray, comp: np.ndarray,
+                        typ: np.ndarray, i0: int, i1: int, stride: int,
+                        block_size: int, plans: np.ndarray,
+                        plan_off: np.ndarray, litlen: np.ndarray,
+                        lit8_base: np.ndarray, loff: np.ndarray, RLP: int,
+                        zrows: np.ndarray | None = None,
+                        dict_buf: np.ndarray | None = None,
+                        dict_cl: np.ndarray | None = None) -> int:
+    """Hint replay over a worker stripe (blocks i0, i0+stride, ... < i1)
+    in one native call: block b's rows land at row ``loff[b]`` of
+    ``lit8_base``, and rows [litrows, zrows[b]) are zeroed when ``zrows``
+    is given. The arrays are indexed by block, ``loff`` and ``zrows``
+    int32, ``plan_off`` and ``litlen`` int64, ``pos``/``comp`` uint64.
+    Returns 0 or the first failing block's negative ZXC error."""
+    L = lib()
+    d8, cl8, cl_ptr = _as_dict_args(dict_buf, dict_cl)
+    want = ((src, np.uint8), (pos, np.uint64), (comp, np.uint64),
+            (typ, np.uint8), (plans, np.int32), (plan_off, np.int64),
+            (litlen, np.int64), (lit8_base, np.uint8), (loff, np.int32))
+    for a, dt in want + (((zrows, np.int32),) if zrows is not None else ()):
+        if a.dtype != dt or not a.flags["C_CONTIGUOUS"]:
+            raise TypeError(f"lit8_load_batch needs contiguous {np.dtype(dt)}")
+    return int(L.zxch_v19_lit8_load_batch(
+        _ptr(src), _ptr(pos), _ptr(comp), _ptr(typ), i0, i1, stride,
+        block_size, _ptr(d8), len(d8), cl_ptr, _ptr(plans), _ptr(plan_off),
+        _ptr(litlen), _ptr(lit8_base), _ptr(loff), RLP,
+        None if zrows is None else _ptr(zrows)))
+
+
+def decompress_frame(src: np.ndarray, block_size: int, has_checksum: bool,
+                     verify: bool, out: np.ndarray,
+                     dict_buf: np.ndarray | None = None,
+                     dict_cl: np.ndarray | None = None,
+                     threads: int = 1) -> int:
+    """Whole-frame host decode into ``out`` (a writable 1-D uint8 array of
+    the footer's size; the native loop never writes past it). Returns the
+    byte count; raises ZxcError with the native code on malformed input."""
+    L = lib()
+    src = np.ascontiguousarray(src, np.uint8)
+    if not (out.dtype == np.uint8 and out.ndim == 1
+            and out.flags["C_CONTIGUOUS"] and out.flags["WRITEABLE"]):
+        raise TypeError("out must be a contiguous writable 1-D uint8 array")
+    d8, cl8, cl_ptr = _as_dict_args(dict_buf, dict_cl)
+    args = (_ptr(src), len(src), block_size, 1 if has_checksum else 0,
+            1 if verify else 0, _ptr(d8), len(d8), cl_ptr, _ptr(out),
+            out.nbytes)
+    if threads > 1:
+        w = L.zxch_decompress_frame_mt(*args, int(threads))
+    else:
+        w = L.zxch_decompress_frame(*args)
+    if w < 0:
+        raise ZxcError(int(w), "native frame decode")
+    return int(w)
+
+
+def rapidhash64(data, seed: int = 0) -> int:
+    """rapidhash v3 of ``data`` (bytes or a uint8 array), native."""
+    a = np.frombuffer(data, np.uint8) if isinstance(
+        data, (bytes, bytearray, memoryview)) else np.ascontiguousarray(
+        data, np.uint8)
+    return int(lib().zxch_rapidhash64(_ptr(a), len(a), seed))
+
+
+def rle_decode(stream: np.ndarray, out_size: int) -> np.ndarray:
+    """RLE literal section (enc_lit=1) -> ``out_size`` bytes; raises
+    ZxcError(CORRUPT_DATA) on a malformed stream."""
+    L = lib()
+    src = np.ascontiguousarray(stream, np.uint8)
+    dst = np.empty(out_size, np.uint8)
+    if L.zxch_rle_decode(_ptr(src), len(src), _ptr(dst), out_size) != 0:
+        raise ZxcError(ERROR_CORRUPT_DATA, "RLE stream (native)")
+    return dst
+
+
+def varint_chain(extras: np.ndarray, count: int) -> tuple[np.ndarray, bool]:
+    """``count`` consecutive varints of the extras stream: (uint32 values,
+    ok); ok is False when the chain runs out or hits a bad prefix."""
+    L = lib()
+    src = np.ascontiguousarray(extras, np.uint8)
+    out = np.zeros(count, np.uint32)
+    rc = L.zxch_varint_chain(_ptr(src), len(src), count, _ptr(out))
+    return out, rc >= 0
+
+
+def pivco_decode(payload: np.ndarray, n: int,
+                 code_len: np.ndarray) -> np.ndarray:
+    """PivCo section payload (no lengths header) -> ``n`` symbols; raises
+    ZxcError(CORRUPT_DATA) on malformed input."""
+    L = lib()
+    src = np.ascontiguousarray(payload, np.uint8)
+    cl = np.ascontiguousarray(code_len, np.uint8)
+    out = np.empty(n, np.uint8)
+    if L.zxch_pivco_decode(_ptr(src), len(src), _ptr(cl), n, _ptr(out)) != 0:
+        raise ZxcError(ERROR_CORRUPT_DATA, "PivCo section (native)")
+    return out
