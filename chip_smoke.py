@@ -6,8 +6,9 @@
 Phases, in order; any failure exits non-zero before the result line:
 
 1. the card's name and power limit (nvidia-smi); build the native host
-   runtime (g++) and the copy-engine kernels v19/v26/v27/v13
-   (``csrc/copy_engine.cu``, nvcc, sm_90a) in parallel;
+   runtime (g++), the copy-engine kernels v19/v26/v27/v13
+   (``csrc/copy_engine.cu``, nvcc, sm_90a) and the encoder's kernels
+   lcp/parse_walk (``csrc/encode.cu``) in parallel;
 2. the pinned 32 MiB corpus (tools/gen_corpus.py, sha256 checked against
    tools/corpus_manifest.json), encoded by the port's native encoder at
    level 3 with 64 KiB blocks (512 blocks, 32 dispatch groups of 16) and
@@ -16,21 +17,30 @@ Phases, in order; any failure exits non-zero before the result line:
 3. each kernel against its plain PyTorch version on the card, on the first
    dispatch group as the port's pipelines ship it (v19, v26: the cold
    prep; v27: the hint's control and the batch replay's flat lit; v13: the
-   4 KiB archive as ``ops/serial.py`` packs it): equal bytes, the kernel's
-   median time over CUDA-event-timed launches, the plain version's time
-   and the bytes bound (``copy_engine.bytes_moved``: the group's live
-   control and the window rows it reads, read once, and the output
-   written once, over 3.35 TB/s);
+   4 KiB archive as ``ops/serial.py`` packs it; lcp and parse_walk: the
+   first 16 blocks of the corpus at level 3 as ``ops/encode.py`` feeds
+   them): equal output, the kernel's median time over CUDA-event-timed
+   launches, the plain version's time and the bytes bound
+   (``copy_engine.bytes_moved``: the group's live control and the window
+   rows it reads, read once, and the output written once;
+   ``encode_kernels.lcp_bytes_moved`` / ``walk_bytes_moved``; over
+   3.35 TB/s), and the walk's dependent chain;
 4. the main paths, each with every launch counter set to 0 just before
    and read just after; each output must equal the corpus and each path's
    kernel must have launched once per group and no other kernel at all:
    the cold ``decompress_e2e`` with v26 (the default) and v19; the hint
    path ``decompress_e2e(hint=)`` with v27 (its default) and with v26;
    the serial route ``ops.decompress(use_serial=True)`` with v19 at
-   64 KiB blocks and v13 at 4 KiB blocks. Fingerprint forms must equal
-   the fingerprints computed on the host. Wall time, GB/s and phase
-   times, and the device busy share of one cold v26 and one hint decode
-   (torch.profiler);
+   64 KiB blocks and v13 at 4 KiB blocks; the device encode
+   ``ops.compress_device`` of the corpus at level 3 with 64 KiB blocks
+   (lcp and parse_walk once per group of 16 blocks). Fingerprint forms
+   must equal the fingerprints computed on the host; the device encode's
+   archive must decode to the corpus through the native decoder and
+   ``decompress_e2e``, stay within 2% of the native encoder's size, and
+   its first 1 MiB must equal the CPU route's archive; a 1 MiB run at
+   128 KiB blocks (the XLA matcher) must decode. Wall time, GB/s and
+   phase times, and the device busy share of one cold v26 decode, one
+   hint decode and one device encode (torch.profiler);
 5. corruption must raise ZxcError: a flipped payload byte with checksums
    on and a truncated archive (cold path and serial route), a hint of
    another archive, a truncated hint and a hint whose qbase carries the
@@ -66,6 +76,11 @@ REPLACES = {19: "zxc_tpu/ops/pallas_decode.py:1306",
             27: "zxc_tpu/ops/pallas_decode.py:1188",
             13: "zxc_tpu/ops/pallas_decode.py:279"}
 SOURCE = "zxc_tpu_torch/csrc/copy_engine.cu"
+ENC_SOURCE = "zxc_tpu_torch/csrc/encode.cu"
+ENC_REPLACES = {"lcp": "zxc_tpu/ops/pallas_encode.py:202",
+                "parse_walk": "zxc_tpu/ops/pallas_encode.py:257"}
+ENC_LEVEL = 3
+XLA_BLOCK = 128 << 10
 
 
 def fail(msg: str) -> None:
@@ -113,13 +128,17 @@ def host_fingerprint(data: bytes, block: int) -> tuple[int, int]:
 
 
 
-def zero_counts(CE) -> None:
-    for k in CE.KERNELS.values():
+def zero_counts(CE, EK=None) -> None:
+    for k in list(CE.KERNELS.values()) + list(
+            EK.KERNELS.values() if EK else []):
         k.launches = 0
 
 
-def read_counts(CE) -> dict:
-    return {v: k.launches for v, k in CE.KERNELS.items()}
+def read_counts(CE, EK=None) -> dict:
+    out = {v: k.launches for v, k in CE.KERNELS.items()}
+    if EK:
+        out.update({v: k.launches for v, k in EK.KERNELS.items()})
+    return out
 
 
 def kernel_row(variant, kern, ref, nbytes, first_group, shape):
@@ -144,6 +163,73 @@ def kernel_row(variant, kern, ref, nbytes, first_group, shape):
           f"(median of 50) vs plain {plain_ms:.2f} ms, bound "
           f"{row['bound_ms']:.6f} ms; equal", flush=True)
     return row
+
+
+def encode_row(name, kern, ref, diff, nbytes, shape):
+    """An encoder kernel against its plain version on one group: equal
+    outputs (``diff`` gives the max abs error), kernel and plain times,
+    bound. Returns the row."""
+    outs, plains = kern(), ref()
+    torch.cuda.synchronize()
+    err = diff(outs, plains)
+    check(err == 0, f"{name} kernel differs from its plain version "
+          f"(max abs err {err})")
+    ms = cuda_ms(kern, reps=50)
+    plain_ms = cuda_ms(ref, reps=5, warm=1)
+    row = {"name": name, "route": "cuda", "source": ENC_SOURCE,
+           "replaces": ENC_REPLACES[name], "launches": None,
+           "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+           "library_ms": None}
+    print(f"kernel {name}: {shape}, {nbytes} bytes to move; {ms:.4f} ms "
+          f"(median of 50) vs plain {plain_ms:.2f} ms, bound "
+          f"{row['bound_ms']:.6f} ms; equal", flush=True)
+    return row
+
+
+def walk_err(out, plain) -> int:
+    """Max abs error of a parse walk against its plain version: nseq, and
+    pos where the walk defines it."""
+    from zxc_tpu_torch.ops.encode_kernels import walk_defined
+    (n, pos), (rn, rpos) = out, plain
+    live = walk_defined(rn, pos.shape[1])
+    return max(int((n - rn).abs().max()),
+               int(torch.where(live, pos - rpos, 0).abs().max()))
+
+
+def run_compress(CE, EK, n_groups, fn, data, native_len, reps=3):
+    """The device encode path: counters zeroed before and read after its
+    first run, which must launch lcp and parse_walk once per group and no
+    other kernel, decode to ``data`` and stay within 2% of the native
+    archive; then the best of ``reps`` timed runs with phases. Returns
+    (launches, archive)."""
+    zero_counts(CE, EK)
+    ph = {}
+    t0 = time.perf_counter()
+    arc = fn(ph)
+    wall0 = time.perf_counter() - t0
+    counts = read_counts(CE, EK)
+    want = {v: (n_groups if v in EK.KERNELS else 0) for v in counts}
+    check(counts == want, f"compress_device: launches {counts}, expected "
+          f"{want}")
+    check(len(arc) <= native_len * 1.02, f"compress_device archive "
+          f"{len(arc)} bytes, native {native_len} (over 2%)")
+    walls, phs = [], []
+    for _ in range(reps):
+        p = {}
+        t0 = time.perf_counter()
+        r = fn(p)
+        walls.append(time.perf_counter() - t0)
+        phs.append(p)
+        check(r == arc, "compress_device: repeat differs")
+    best = min(range(reps), key=lambda i: walls[i])
+    print(f"compress_device L{ENC_LEVEL} 64 KiB: launches {counts}, archive "
+          f"{len(arc)} bytes ({len(arc) / native_len:.4f} of native "
+          f"{native_len}); first wall {wall0:.4f} s; best of {reps} "
+          f"{walls[best]:.4f} s = {len(data) / 1e9 / walls[best]:.4f} GB/s; "
+          "phases " + ", ".join(f"{k} {v:.4f} s"
+                                for k, v in phs[best].items()), flush=True)
+    return counts, arc
 
 
 def group_bytes_equal(data, totals, block, dispatch):
@@ -238,6 +324,8 @@ def main() -> None:
     import zxc_tpu_torch as Z
     from zxc_tpu_torch import runtime
     from zxc_tpu_torch.ops import _build, copy_engine as CE
+    from zxc_tpu_torch.ops import encode as ENC, encode_kernels as EK
+    from zxc_tpu_torch.codec import frame
     from zxc_tpu_torch.ops import device_pipeline as DP
     from zxc_tpu_torch.ops import batch as BT, hints as H, serial as S
     from gen_corpus import gen_corpus
@@ -249,14 +337,13 @@ def main() -> None:
 
     # -- 1. builds, in parallel ------------------------------------------
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as ex:
-        fr = ex.submit(runtime.lib)
-        fk = ex.submit(_build.kernels)
-        fr.result()
-        fk.result()
-    print(f"build: {time.perf_counter() - t0:.2f} s (libzxchost + "
-          f"copy_engine.cu)", flush=True)
-    for ln in _build.build_log.splitlines():
+    with ThreadPoolExecutor(3) as ex:
+        for f in [ex.submit(fn) for fn in (runtime.lib, _build.kernels,
+                                           _build.encode_kernels)]:
+            f.result()
+    print(f"build: {time.perf_counter() - t0:.2f} s (libzxchost, "
+          f"copy_engine.cu and encode.cu in parallel)", flush=True)
+    for ln in "".join(_build.build_logs.values()).splitlines():
         if "registers" in ln or "spill" in ln or "Compiling" in ln:
             print(f"  ptxas: {ln.strip()}")
 
@@ -339,6 +426,29 @@ def main() -> None:
         group_bytes_equal(data, sub.totals, SMALL_BLOCK, DISPATCH),
         f"MAXQ={group[1].shape[1]} RLP={group[4].shape[1]}")
 
+    params = frame.level_params(ENC_LEVEL)
+    grp = torch.from_numpy(np.frombuffer(data, np.uint8, DISPATCH * BLOCK)
+                           .reshape(DISPATCH, BLOCK).copy()).cuda()
+    pc = ENC.lcp_inputs(grp, params.n_candidates)[0]
+    enc_rows = {"lcp": encode_row(
+        "lcp", lambda: EK.lcp(grp, pc), lambda: EK.lcp_reference(grp, pc),
+        lambda o, r: int((o - r).abs().max()),
+        EK.lcp_bytes_moved(DISPATCH, BLOCK, pc.shape[1]),
+        f"B={DISPATCH} n={BLOCK} K={params.n_candidates} "
+        f"pairs={pc.numel()}")}
+    lens = ENC.find_matches_device_lcp_batch(grp, params.n_candidates)[0]
+    step = ENC.walk_steps(lens, params.lazy, params.min_emit)
+    chain = EK.walk_chain(step)
+    enc_rows["parse_walk"] = encode_row(
+        "parse_walk", lambda: EK.parse_walk(step),
+        lambda: EK.parse_walk_reference(step), walk_err,
+        EK.walk_bytes_moved(step),
+        f"B={DISPATCH} P={BLOCK} chain max {chain.max()} mean "
+        f"{chain.mean():.0f} steps")
+    print(f"parse_walk: {enc_rows['parse_walk']['ms'] * 1e6 / chain.max():.1f}"
+          " ns per step of the longest chain", flush=True)
+    del grp, pc, lens, step
+
     # -- 4. the main paths -------------------------------------------------
     fp_host = host_fingerprint(data, BLOCK)
     cold = {26: None, 19: None}
@@ -371,10 +481,37 @@ def main() -> None:
     rows[13]["launches"] = run_path(
         CE, "serial v13 (4 KiB blocks)", 13, n_groups4,
         lambda ph: Z.ops.decompress(arc4, device="cuda", _phases=ph), data)
+    counts, arc_d = run_compress(
+        CE, EK, n_groups,
+        lambda ph: Z.ops.compress_device(data, level=ENC_LEVEL,
+                                         block_size=BLOCK, _phases=ph),
+        data, len(arc))
+    for name in EK.KERNELS:
+        enc_rows[name]["launches"] = counts[name]
+    check(frame.decompress(arc_d) == data,
+          "compress_device archive: the native decoder differs")
+    check(Z.decompress_e2e(arc_d, device="cuda") == data,
+          "compress_device archive: decompress_e2e differs")
+    mb = data[:1 << 20]
+    check(Z.ops.compress_device(mb, level=ENC_LEVEL, block_size=BLOCK)
+          == Z.ops.compress_device(mb, level=ENC_LEVEL, block_size=BLOCK,
+                                   device="cpu"),
+          "compress_device: the first 1 MiB differs from the CPU route")
+    t0 = time.perf_counter()
+    arc_x = Z.ops.compress_device(mb, level=ENC_LEVEL, block_size=XLA_BLOCK)
+    t_x = time.perf_counter() - t0
+    check(frame.decompress(arc_x) == mb,
+          "compress_device at 128 KiB blocks (XLA matcher) differs")
+    print(f"compress_device: decodes (native and decompress_e2e); first "
+          f"1 MiB equals the CPU route; 1 MiB at 128 KiB blocks (XLA "
+          f"matcher) {len(arc_x)} bytes in {t_x:.4f} s, decodes",
+          flush=True)
     profile_share("e2e v26 (cold)", lambda: Z.decompress_e2e(
         arc, device="cuda", variant=26))
     profile_share("e2e hint v27", lambda: Z.decompress_e2e(
         arc, device="cuda", hint=hint))
+    profile_share("compress_device", lambda: Z.ops.compress_device(
+        data, level=ENC_LEVEL, block_size=BLOCK))
 
     # -- 5. corruption -------------------------------------------------------
     small = Z.compress(data[:4 * BLOCK], Z.EncodeOpts(
@@ -413,7 +550,8 @@ def main() -> None:
     check(Z.decompress_e2e(small, device="cuda", hint=small_hint)
           == data[:4 * BLOCK], "the unflipped small hint does not decode")
 
-    print(json.dumps({"kernels": [rows[v] for v in (19, 26, 27, 13)]}))
+    print(json.dumps({"kernels": [rows[v] for v in (19, 26, 27, 13)]
+                      + [enc_rows[k] for k in ("lcp", "parse_walk")]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

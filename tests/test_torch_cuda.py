@@ -1,7 +1,7 @@
-"""Card tests of the PyTorch port: each CUDA kernel (v19, v26, v27, v13)
-against its plain PyTorch version on the card, on valid and on garbage
-control, and the cold, hint and serial decodes through the kernels
-against the CPU path. They need an NVIDIA card with
+"""Card tests of the PyTorch port: each CUDA kernel (v19, v26, v27, v13,
+lcp, parse_walk) against its plain PyTorch version on the card, on valid
+and on garbage control, and the cold, hint and serial decodes and the
+device encode through the kernels against the CPU path. They need an NVIDIA card with
 nvcc, are marked ``cuda`` and skip without one. On the card:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
@@ -178,3 +178,74 @@ def test_e2e_on_card(card, variant):
                             _collect="fingerprint") == \
         Z.decompress_e2e(arc, device="cpu", dispatch=4, variant=variant,
                          _collect="fingerprint")
+
+
+def random_pairs(seed: int, B: int, n: int, NP: int, garbage: bool):
+    """Blocks and packed LCP pairs (``c | p << 16``) made with numpy.
+    Valid pairs are ascending p with c < p inside the block, many with
+    long runs (c = p - 1 in a filled stretch, c = p - 7 in a periodic
+    one); ``garbage`` draws any int32 word: p <= c, positions at or past
+    n and p past 32767 included."""
+    rng = np.random.default_rng(seed)
+    blk = rng.integers(0, 4, (B, n)).astype(np.uint8)
+    blk[:, n // 4:n // 2] = 7                                 # a long run
+    per = rng.integers(0, 256, 7).astype(np.uint8)
+    blk[:, n // 2:] = np.resize(per, n - n // 2)              # periodic
+    if garbage:
+        return blk, rng.integers(-2**31, 2**31, (B, NP)).astype(np.int32)
+    p = np.sort(rng.integers(1, max(n, 2), (B, NP)), axis=1)
+    back = rng.choice([1, 7, 300], (B, NP))
+    c = np.maximum(p - np.where(rng.random((B, NP)) < 0.5, back,
+                                rng.integers(1, max(n, 2), (B, NP))), 0)
+    return blk, ((p << 16) | c).astype(np.uint32).astype(np.int32)
+
+
+@pytest.mark.parametrize("garbage", [False, True])
+def test_lcp_equals_plain_version_on_card(card, garbage):
+    from zxc_tpu_torch.ops import encode_kernels as EK
+    for seed, (B, n, NP) in enumerate(((1, 12, 40), (3, 4093, 5000),
+                                       (16, 65536, 300_000))):
+        blk, pc = (torch.from_numpy(a).to(card)
+                   for a in random_pairs(seed, B, n, NP, garbage))
+        before = EK.lcp.launches
+        out = EK.lcp(blk, pc)
+        torch.cuda.synchronize()
+        assert EK.lcp.launches == before + 1
+        assert torch.equal(out, EK.lcp_reference(blk, pc))
+
+
+@pytest.mark.parametrize("garbage", [False, True])
+def test_parse_walk_equals_plain_version_on_card(card, garbage):
+    from zxc_tpu_torch.ops import encode_kernels as EK
+    for seed, (B, P) in enumerate(((1, 1), (2, 2048), (16, 65536))):
+        rng = np.random.default_rng(seed)
+        if garbage:
+            step = rng.integers(-5, 70_000, (B, P))
+            step[:, ::3] = rng.integers(-3, 4, (B, len(step[0, ::3])))
+            step[B // 2] = 2             # more records than pos holds
+        else:
+            lens = rng.integers(0, 40, (B, P))
+            step = np.where(lens >= 5, lens, 1)
+        step = torch.from_numpy(step.astype(np.int32)).to(card)
+        before = EK.parse_walk.launches
+        nseq, pos = EK.parse_walk(step)
+        torch.cuda.synchronize()
+        assert EK.parse_walk.launches == before + 1
+        rn, rp = EK.parse_walk_reference(step)
+        live = EK.walk_defined(rn, rp.shape[1])
+        assert torch.equal(nseq, rn)
+        assert torch.equal(torch.where(live, pos, 0), rp)
+
+
+@pytest.mark.parametrize("level", [1, 3, 5])
+def test_compress_device_on_card_equals_cpu(card, level):
+    from zxc_tpu_torch.ops import encode_kernels as EK
+    data = (_card_corpus(level) * 3)[:1 << 20]
+    before = (EK.lcp.launches, EK.parse_walk.launches)
+    arc = Z.ops.compress_device(data, level=level, block_size=65536)
+    groups = -(-(len(data) // 65536) // 16) + (len(data) % 65536 > 0)
+    assert (EK.lcp.launches - before[0],
+            EK.parse_walk.launches - before[1]) == (groups, groups)
+    assert arc == Z.ops.compress_device(data, level=level, block_size=65536,
+                                        device="cpu")
+    assert Z.codec.frame.decompress(arc) == data

@@ -1,6 +1,6 @@
 """The PyTorch port stands alone: it imports neither jax nor anything of
 ``zxc_tpu``, it never falls back silently to the CPU, and a missing native
-library or kernel build raises."""
+library or kernel build (copy engine or encoder) raises."""
 import ast
 import os
 import subprocess
@@ -30,7 +30,9 @@ def test_import_leaves_jax_and_zxc_tpu_out():
             "zxc_tpu_torch.ops.device_pipeline, zxc_tpu_torch.runtime, "
             "zxc_tpu_torch.ops.hints, zxc_tpu_torch.ops.batch, "
             "zxc_tpu_torch.ops.serial, zxc_tpu_torch.codec.block_decode, "
-            "zxc_tpu_torch.codec.huffman, zxc_tpu_torch.format.varint\n"
+            "zxc_tpu_torch.codec.huffman, zxc_tpu_torch.format.varint, "
+            "zxc_tpu_torch.ops.encode, zxc_tpu_torch.ops.encode_kernels, "
+            "zxc_tpu_torch.codec.block_encode\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'jaxlib')) or m == 'zxc_tpu' "
             "or m.startswith('zxc_tpu.'))\n"
@@ -112,19 +114,29 @@ def test_missing_native_library_raises(tmp_path, monkeypatch):
 
 
 def test_failed_kernel_build_raises(tmp_path, monkeypatch):
-    monkeypatch.setattr(_build, "_lib", None)
+    monkeypatch.setattr(_build, "_libs", {})
     monkeypatch.setattr(buildlib, "BUILD_DIR", str(tmp_path / "build"))
     monkeypatch.setattr(_build, "_nvcc", lambda: str(tmp_path / "no-nvcc"))
     with pytest.raises(RuntimeError, match="building copy_engine failed"):
         _build.kernels()
 
 
+def test_failed_encode_kernel_build_raises(tmp_path, monkeypatch):
+    monkeypatch.setattr(_build, "_libs", {})
+    monkeypatch.setattr(buildlib, "BUILD_DIR", str(tmp_path / "build"))
+    monkeypatch.setattr(_build, "_nvcc", lambda: str(tmp_path / "no-nvcc"))
+    with pytest.raises(RuntimeError, match="building encode failed"):
+        _build.encode_kernels()
+
+
 def test_nvcc_absent_raises(monkeypatch):
-    monkeypatch.setattr(_build, "_lib", None)
+    monkeypatch.setattr(_build, "_libs", {})
     monkeypatch.setattr(_build.shutil, "which", lambda name: None)
     monkeypatch.setattr(_build.os.path, "exists", lambda p: False)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.kernels()
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.encode_kernels()
 
 
 def test_build_cache_rebuilds_on_source_change(tmp_path, monkeypatch):

@@ -1,11 +1,12 @@
-"""zxc_tpu_torch: the PyTorch/CUDA port of zxc_tpu's device decode path.
+"""zxc_tpu_torch: the PyTorch/CUDA port of zxc_tpu's device paths.
 
 It imports torch and numpy, never jax and nothing of the ``zxc_tpu``
 package: the host layers it needs (constants, errors, format readers, the
 native runtime) are its own copies. The entry point runs on the card
 unless the caller passes ``device="cpu"``, which runs the kernels' plain
 PyTorch versions: ``decompress_e2e`` (cold, or with a ``.zxh`` hint from
-``write_hints``) and ``ops.decompress`` (the serial route).
+``write_hints``), ``ops.decompress`` (the serial route) and
+``ops.compress_device`` (device encode).
 """
 from .errors import ZxcError  # noqa: F401
 from .codec.frame import DecodeOpts, EncodeOpts, compress  # noqa: F401

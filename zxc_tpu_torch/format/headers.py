@@ -1,6 +1,7 @@
 """File header, block header, GLO/GHI sub-header and footer (FORMAT.md
-sections 3-5 and 8), the port's copy of the readers in
-``zxc_tpu.format.headers`` (reference parser: zxc_common.c:546-720)."""
+sections 3-5 and 8), the port's copy of the readers and writers in
+``zxc_tpu.format.headers`` (reference writers and parser:
+zxc_common.c:546-720)."""
 from __future__ import annotations
 
 import struct
@@ -11,6 +12,21 @@ from ..errors import (ZxcError, ERROR_SRC_TOO_SMALL, ERROR_BAD_MAGIC,
                       ERROR_BAD_VERSION, ERROR_BAD_HEADER,
                       ERROR_BAD_BLOCK_SIZE)
 from .hashes import hash8, hash16
+
+
+def write_file_header(block_size: int, has_checksum: bool,
+                      dict_id: int = 0) -> bytes:
+    buf = bytearray(C.FILE_HEADER_SIZE)
+    struct.pack_into("<I", buf, 0, C.MAGIC_WORD)
+    buf[4] = C.FORMAT_VERSION
+    buf[5] = C.block_size_code(block_size)
+    flags = (C.FLAG_HAS_CHECKSUM | C.CHECKSUM_RAPIDHASH) if has_checksum else 0
+    if dict_id != 0:
+        flags |= C.FLAG_HAS_DICTIONARY
+        struct.pack_into("<I", buf, 7, dict_id)
+    buf[6] = flags
+    struct.pack_into("<H", buf, 14, hash16(bytes(buf)))
+    return bytes(buf)
 
 
 @dataclass
@@ -42,11 +58,25 @@ def read_file_header(src: bytes) -> FileHeader:
     return FileHeader(1 << code, has_checksum, dict_id)
 
 
+def write_file_footer(src_size: int, global_hash: int,
+                      checksum_enabled: bool) -> bytes:
+    return struct.pack("<QI", src_size,
+                       global_hash if checksum_enabled else 0)
+
+
 def read_file_footer(src: bytes) -> tuple[int, int]:
     """Returns (original_source_size, global_hash) from the last 12 bytes."""
     if len(src) < C.FILE_FOOTER_SIZE:
         raise ZxcError(ERROR_SRC_TOO_SMALL, "footer truncated")
     return struct.unpack_from("<QI", src, len(src) - C.FILE_FOOTER_SIZE)
+
+
+def write_block_header(block_type: int, comp_size: int) -> bytes:
+    buf = bytearray(C.BLOCK_HEADER_SIZE)
+    buf[0] = block_type
+    struct.pack_into("<I", buf, 3, comp_size)
+    buf[7] = hash8(bytes(buf))
+    return bytes(buf)
 
 
 @dataclass
@@ -74,6 +104,16 @@ class GnrHeader:
     enc_litlen: int
     enc_mlen: int
     enc_off: int
+
+
+def write_gnr_header(gh: GnrHeader, descs: list[tuple[int, int]]) -> bytes:
+    """Sub-header and descriptors; each desc is (comp_size, raw_size)."""
+    out = bytearray(struct.pack("<II4B4x", gh.n_sequences, gh.n_literals,
+                                gh.enc_lit, gh.enc_litlen, gh.enc_mlen,
+                                gh.enc_off))
+    for comp, raw in descs:
+        out += struct.pack("<Q", (raw << 32) | comp)
+    return bytes(out)
 
 
 def read_gnr_header(payload: bytes, n_sections: int

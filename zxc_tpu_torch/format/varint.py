@@ -1,7 +1,8 @@
 """Prefix varint of the extras stream (FORMAT.md section 6), the port's
 copy of ``zxc_tpu.format.varint``. The serial route parses extras with the
 native chain (``runtime.varint_chain``); ``varint_decode_array`` is its
-plain reference.
+plain reference. ``varint_encode`` writes one value (the device encoder's
+host emitter).
 
 Unary length prefix in the high bits of the first byte; payload bits are
 concatenated low-bits-first. Capped at 3 bytes (values < 2^21); a first
@@ -10,6 +11,20 @@ byte >= 0xE0 is corrupt by definition.
 from __future__ import annotations
 
 import numpy as np
+
+from ..errors import ZxcError, ERROR_CORRUPT_DATA
+
+
+def varint_encode(value: int) -> bytes:
+    if value < 0x80:
+        return bytes((value,))
+    if value < 0x4000:
+        return bytes((0x80 | (value & 0x3F), (value >> 6) & 0xFF))
+    if value < 0x200000:
+        return bytes((0xC0 | (value & 0x1F), (value >> 5) & 0xFF,
+                      (value >> 13) & 0xFF))
+    raise ZxcError(ERROR_CORRUPT_DATA,
+                   f"varint value {value} exceeds 21 bits")
 
 
 def varint_decode_array(extras: np.ndarray, count: int) -> tuple[np.ndarray, bool]:

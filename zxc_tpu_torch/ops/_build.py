@@ -1,8 +1,10 @@
 """Builds ``csrc/*.cu`` with nvcc for sm_90a and loads it through ctypes.
 
 The kernels have a plain C interface (pointers, ints, the stream), so the
-build needs no PyTorch headers and takes seconds. It runs at first use,
-never at import; without nvcc, or when the build or load fails, it raises.
+build needs no PyTorch headers and takes seconds. Each source is its own
+library, built at first use (never at import) under its own lock, so the
+two can build in parallel; without nvcc, or when the build or load fails,
+it raises.
 """
 from __future__ import annotations
 
@@ -18,9 +20,10 @@ _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-_lock = threading.Lock()
-_lib = None
-build_log = ""   # nvcc / ptxas output of the build this process ran
+_guard = threading.Lock()
+_locks: dict[str, threading.Lock] = {}
+_libs: dict[str, ctypes.CDLL] = {}
+build_logs: dict[str, str] = {}   # nvcc / ptxas output per source, as built
 
 
 def _nvcc() -> str:
@@ -30,29 +33,53 @@ def _nvcc() -> str:
     return nvcc
 
 
-def kernels() -> ctypes.CDLL:
-    """The copy-engine kernel library, built on first use."""
-    global _lib, build_log
-    if _lib is not None:
-        return _lib
-    with _lock:
-        if _lib is not None:
-            return _lib
-        path, build_log = build_shared(os.path.join(_CSRC, "copy_engine.cu"),
-                                       "copy_engine",
-                                       [_nvcc()] + NVCC_FLAGS)
+def _library(stem: str, bind) -> ctypes.CDLL:
+    """``csrc/<stem>.cu`` built on first use and loaded, with ``bind``
+    setting its entries' ctypes signatures; one lock per source."""
+    lib = _libs.get(stem)
+    if lib is not None:
+        return lib
+    with _guard:
+        lock = _locks.setdefault(stem, threading.Lock())
+    with lock:
+        if stem in _libs:
+            return _libs[stem]
+        path, build_logs[stem] = build_shared(
+            os.path.join(_CSRC, f"{stem}.cu"), stem, [_nvcc()] + NVCC_FLAGS)
         try:
-            L = ctypes.CDLL(path)
+            lib = ctypes.CDLL(path)
         except OSError as e:
             raise RuntimeError(f"loading {path} failed: {e}") from e
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        for fn in (L.zxc_copy_engine_v19, L.zxc_copy_engine_v26):
-            fn.restype = ci
-            fn.argtypes = [vp] * 6 + [ci] * 6 + [vp]
-        L.zxc_copy_engine_v27.restype = ci
-        L.zxc_copy_engine_v27.argtypes = ([vp] * 7 + [ci] * 6
-                                          + [ctypes.c_int64, vp])
-        L.zxc_copy_engine_v13.restype = ci
-        L.zxc_copy_engine_v13.argtypes = [vp] * 6 + [ci] * 5 + [vp]
-        _lib = L
-        return _lib
+        bind(lib, ctypes.c_void_p, ctypes.c_int)
+        _libs[stem] = lib
+        return lib
+
+
+def _bind_copy_engine(L, vp, ci) -> None:
+    for fn in (L.zxc_copy_engine_v19, L.zxc_copy_engine_v26):
+        fn.restype = ci
+        fn.argtypes = [vp] * 6 + [ci] * 6 + [vp]
+    L.zxc_copy_engine_v27.restype = ci
+    L.zxc_copy_engine_v27.argtypes = [vp] * 7 + [ci] * 6 + [ctypes.c_int64,
+                                                            vp]
+    L.zxc_copy_engine_v13.restype = ci
+    L.zxc_copy_engine_v13.argtypes = [vp] * 6 + [ci] * 5 + [vp]
+
+
+def _bind_encode(L, vp, ci) -> None:
+    i64 = ctypes.c_longlong
+    L.zxc_lcp.restype = ci
+    L.zxc_lcp.argtypes = [vp] * 3 + [ci, i64, ci, i64, vp]
+    L.zxc_parse_walk.restype = ci
+    L.zxc_parse_walk.argtypes = [vp] * 3 + [ci] * 3 + [vp]
+
+
+def kernels() -> ctypes.CDLL:
+    """The copy-engine kernel library, built on first use."""
+    return _library("copy_engine", _bind_copy_engine)
+
+
+def encode_kernels() -> ctypes.CDLL:
+    """The device encoder's kernel library (LCP, parse walk), built on
+    first use."""
+    return _library("encode", _bind_encode)

@@ -12,7 +12,7 @@ Routes the JAX package has and the port does not yet raise
 ``NotImplementedError`` naming their ROADMAP item: the expansion kernels
 (``use_serial=False``, or a block whose pieces exceed the resolver's
 budget; queue 1 item 3), device entropy decode (queue 1 item 5) and the
-attic kernels (queue 2 item 6).
+attic kernels (queue 1 item 1).
 """
 from __future__ import annotations
 
@@ -192,7 +192,7 @@ def decompress(archive: bytes, opts: DecodeOpts | None = None, *,
     if variant not in (13, 19):
         raise NotImplementedError(
             f"serial variant {variant} is an attic kernel "
-            "(tools/kernel_attic.py), ROADMAP queue 2 item 6")
+            "(tools/kernel_attic.py), ROADMAP queue 1 item 1")
     dev = _device(device)
     t0 = time.perf_counter()
     plan = plan_frame(archive, opts)

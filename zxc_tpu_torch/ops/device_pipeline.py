@@ -523,13 +523,14 @@ def _group_fns(block: int, dispatch: int, K: int, variant: int, RLP: int,
     return group_fp, group_out
 
 
-def _device(device) -> torch.device:
+def _device(device, name: str = "decompress_e2e") -> torch.device:
+    """``None`` means cuda, which must be available; cuda or cpu only."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("decompress_e2e: CUDA is not available (pass "
+        raise RuntimeError(f"{name}: CUDA is not available (pass "
                            "device='cpu' for the plain CPU path)")
     if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"decompress_e2e runs on cuda or cpu, not {dev}")
+        raise ValueError(f"{name} runs on cuda or cpu, not {dev}")
     return dev
 
 

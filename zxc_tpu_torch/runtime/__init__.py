@@ -9,7 +9,9 @@ form (``*_prep_block_plan``), the hint replay of the literal window
 (``zxch_v19_lit8_load[_batch]``), the section parsers of the serial route
 (RLE literals, varint extras, PivCo entropy), the piece resolver and
 lane-op splitter, the host frame decoder (the hint body is itself a
-frame), rapidhash64, and the native frame encoder.
+frame), rapidhash64, the native frame encoder, and the section emitters
+of the device encoder's host half (PivCo encode, RLE literals and
+package-merge code lengths).
 
 Unlike ``zxc_tpu.runtime`` there is no pure-Python fallback: the port's
 decode path has no Python prep, so a library that cannot be built or
@@ -101,6 +103,12 @@ def _bind(L: ctypes.CDLL) -> None:
     L.zxch_varint_chain.argtypes = [vp, u64, u64, vp]
     L.zxch_pivco_decode.restype = ci
     L.zxch_pivco_decode.argtypes = [vp, u64, vp, u64, vp]
+    L.zxch_pivco_encode.restype = i64
+    L.zxch_pivco_encode.argtypes = [vp, u64, vp, vp, u64]
+    L.zxch_rle_encode_lit.restype = i64
+    L.zxch_rle_encode_lit.argtypes = [vp, u64, vp, u64]
+    L.zxch_code_lengths.restype = ci
+    L.zxch_code_lengths.argtypes = [vp, ci, vp]
 
 
 def lib() -> ctypes.CDLL:
@@ -425,6 +433,45 @@ def varint_chain(extras: np.ndarray, count: int) -> tuple[np.ndarray, bool]:
     out = np.zeros(count, np.uint32)
     rc = L.zxch_varint_chain(_ptr(src), len(src), count, _ptr(out))
     return out, rc >= 0
+
+
+def pivco_encode(data: np.ndarray, code_len: np.ndarray) -> bytes | None:
+    """PivCo payload encode (no lengths header), native; None when the
+    native encoder refuses the code (the caller then encodes in numpy,
+    ``codec.huffman.encode_payload``)."""
+    L = lib()
+    d8 = np.ascontiguousarray(data, np.uint8)
+    cl = np.ascontiguousarray(code_len, np.uint8)
+    cap = 2 * len(d8) + 4096
+    out = np.empty(cap, np.uint8)
+    n = L.zxch_pivco_encode(_ptr(d8), len(d8), _ptr(cl), _ptr(out), cap)
+    return None if n < 0 else out[:n].tobytes()
+
+
+def rle_encode_lit(lit: np.ndarray) -> bytes | None:
+    """RLE literal-section emitter (enc_lit=1), native; None when the
+    output would not fit its buffer."""
+    L = lib()
+    d8 = np.ascontiguousarray(lit, np.uint8)
+    cap = 2 * len(d8) + 8
+    out = np.empty(cap, np.uint8)
+    n = L.zxch_rle_encode_lit(_ptr(d8), len(d8), _ptr(out), cap)
+    return None if n < 0 else out[:n].tobytes()
+
+
+def code_lengths(freq: np.ndarray, max_len: int) -> np.ndarray | None:
+    """Package-merge code lengths (uint8[256], 0 = absent) for a 256-bin
+    histogram, native; None for a histogram of another length or a cap
+    the native package-merge refuses (above 15, or too small for the
+    alphabet)."""
+    L = lib()
+    f = np.ascontiguousarray(freq, np.uint64)
+    if len(f) != 256:
+        return None
+    cl = np.zeros(256, np.uint8)
+    if L.zxch_code_lengths(_ptr(f), max_len, _ptr(cl)) < 0:
+        return None
+    return cl
 
 
 def pivco_decode(payload: np.ndarray, n: int,
