@@ -7,31 +7,41 @@ Phases, in order; any failure exits non-zero before the result line:
 
 1. the card's name and power limit (nvidia-smi); build the native host
    runtime (g++), the copy-engine kernels v19/v26/v27/v13
-   (``csrc/copy_engine.cu``, nvcc, sm_90a) and the encoder's kernels
-   lcp/parse_walk (``csrc/encode.cu``) in parallel;
+   (``csrc/copy_engine.cu``, nvcc, sm_90a), the encoder's kernels
+   lcp/parse_walk (``csrc/encode.cu``) and the attic's piece-serial kernel
+   (``csrc/attic.cu``) in parallel;
 2. the pinned 32 MiB corpus (tools/gen_corpus.py, sha256 checked against
    tools/corpus_manifest.json), encoded by the port's native encoder at
-   level 3 with 64 KiB blocks (512 blocks, 32 dispatch groups of 16) and
-   with 4 KiB blocks (8192 blocks, 512 groups); ``write_hints`` of the
-   64 KiB archive, timed on its own;
+   level 3 with 64 KiB blocks (512 blocks, 32 dispatch groups of 16), with
+   4 KiB blocks (8192 blocks, 512 groups), with the default 512 KiB blocks
+   (64 blocks, one device batch of 64) and seekable with 64 KiB blocks;
+   ``write_hints`` of the 64 KiB archive, timed on its own;
 3. each kernel against its plain PyTorch version on the card, on the first
    dispatch group as the port's pipelines ship it (v19, v26: the cold
    prep; v27: the hint's control and the batch replay's flat lit; v13: the
-   4 KiB archive as ``ops/serial.py`` packs it; lcp and parse_walk: the
-   first 16 blocks of the corpus at level 3 as ``ops/encode.py`` feeds
-   them): equal output, the kernel's median time over CUDA-event-timed
-   launches, the plain version's time and the bytes bound
-   (``copy_engine.bytes_moved``: the group's live control and the window
-   rows it reads, read once, and the output written once;
-   ``encode_kernels.lcp_bytes_moved`` / ``walk_bytes_moved``; over
-   3.35 TB/s), and the walk's dependent chain;
+   4 KiB archive as ``ops/serial.py`` packs it; the attic kernel: the
+   64 KiB archive as ``ops.decompress(use_serial=True, variant=2)`` packs
+   it; lcp and parse_walk: the first 16 blocks of the corpus at level 3 as
+   ``ops/encode.py`` feeds them): equal output, the kernel's median time
+   over CUDA-event-timed launches, the plain version's time and the bytes
+   bound (``copy_engine.bytes_moved``: the group's live control and the
+   window rows it reads, read once, and the output written once;
+   ``attic.bytes_moved``: 16 bytes a piece, each literal byte once and the
+   output once; ``encode_kernels.lcp_bytes_moved`` / ``walk_bytes_moved``;
+   over 3.35 TB/s), and the walk's dependent chain;
 4. the main paths, each with every launch counter set to 0 just before
-   and read just after; each output must equal the corpus and each path's
-   kernel must have launched once per group and no other kernel at all:
-   the cold ``decompress_e2e`` with v26 (the default) and v19; the hint
-   path ``decompress_e2e(hint=)`` with v27 (its default) and with v26;
-   the serial route ``ops.decompress(use_serial=True)`` with v19 at
-   64 KiB blocks and v13 at 4 KiB blocks; the device encode
+   and read just after; each output must equal the corpus (or its range)
+   and each path's kernel must have launched once per group and no other
+   kernel at all: the cold ``decompress_e2e`` with v26 (the default) and
+   v19; the hint path ``decompress_e2e(hint=)`` with v27 (its default) and
+   with v26; the default ``ops.decompress`` route (piece plans expanded by
+   tensor ops) at 512 KiB and 64 KiB blocks and its chase route
+   (``use_pieces=False``) at 512 KiB, which launch no hand-written kernel;
+   ``Seekable.decompress_range_device`` over a range of 11 blocks of the
+   seekable archive, also kernel-free; the serial route
+   ``ops.decompress(use_serial=True)`` with v19 at 64 KiB blocks, v13 at
+   4 KiB blocks and the attic kernel (variant 2) at 64 KiB blocks, and
+   variants 1 and 3 on the first 4 MiB; the device encode
    ``ops.compress_device`` of the corpus at level 3 with 64 KiB blocks
    (lcp and parse_walk once per group of 16 blocks). Fingerprint forms
    must equal the fingerprints computed on the host; the device encode's
@@ -40,11 +50,12 @@ Phases, in order; any failure exits non-zero before the result line:
    its first 1 MiB must equal the CPU route's archive; a 1 MiB run at
    128 KiB blocks (the XLA matcher) must decode. Wall time, GB/s and
    phase times, and the device busy share of one cold v26 decode, one
-   hint decode and one device encode (torch.profiler);
+   hint decode, one default-route decode at 512 KiB and one device encode
+   (torch.profiler);
 5. corruption must raise ZxcError: a flipped payload byte with checksums
-   on and a truncated archive (cold path and serial route), a hint of
-   another archive, a truncated hint and a hint whose qbase carries the
-   (1<<24)|64 flip.
+   on and a truncated archive (cold path, default route and serial
+   route), a hint of another archive, a truncated hint and a hint whose
+   qbase carries the (1<<24)|64 flip.
 
 It prints a ``{"kernels": [...]}`` line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Without CUDA, or outside a checkout of
@@ -71,6 +82,9 @@ CORPUS_BYTES = 32 << 20
 BLOCK = 64 << 10
 DISPATCH = 16
 SMALL_BLOCK = 4 << 10
+DEFAULT_BLOCK = 512 << 10     # the encoder's default block size
+ATTIC_SOURCE = "zxc_tpu_torch/csrc/attic.cu"
+ATTIC_REPLACES = "tools/kernel_attic.py:272"
 REPLACES = {19: "zxc_tpu/ops/pallas_decode.py:1306",
             26: "zxc_tpu/ops/pallas_decode.py:1038",
             27: "zxc_tpu/ops/pallas_decode.py:1188",
@@ -128,56 +142,41 @@ def host_fingerprint(data: bytes, block: int) -> tuple[int, int]:
 
 
 
-def zero_counts(CE, EK=None) -> None:
-    for k in list(CE.KERNELS.values()) + list(
-            EK.KERNELS.values() if EK else []):
-        k.launches = 0
+def kernel_families():
+    from zxc_tpu_torch.ops import attic, copy_engine, encode_kernels
+    return (copy_engine.KERNELS, encode_kernels.KERNELS, attic.KERNELS)
 
 
-def read_counts(CE, EK=None) -> dict:
-    out = {v: k.launches for v, k in CE.KERNELS.items()}
-    if EK:
-        out.update({v: k.launches for v, k in EK.KERNELS.items()})
-    return out
+def zero_counts() -> None:
+    for fam in kernel_families():
+        for k in fam.values():
+            k.launches = 0
 
 
-def kernel_row(variant, kern, ref, nbytes, first_group, shape):
-    """Kernel against plain version on one group: equal bytes (also equal
-    to the corpus), kernel and plain times, bound. Returns the row."""
-    out = kern()
-    plain = ref()
-    torch.cuda.synchronize()
-    err = int((out.int() - plain.int()).abs().max())
-    check(err == 0, f"v{variant} kernel differs from its plain version "
-          f"(max abs err {err})")
-    check(first_group(out), f"v{variant} kernel's first group differs from "
-          "the corpus")
-    ms = cuda_ms(kern, reps=50)
-    plain_ms = cuda_ms(ref, reps=5, warm=1)
-    row = {"name": f"v{variant}", "route": "cuda", "source": SOURCE,
-           "replaces": REPLACES[variant], "launches": None,
-           "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-           "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
-           "library_ms": None}
-    print(f"kernel v{variant}: {shape}, {nbytes} bytes to move; {ms:.4f} ms "
-          f"(median of 50) vs plain {plain_ms:.2f} ms, bound "
-          f"{row['bound_ms']:.6f} ms; equal", flush=True)
-    return row
+def read_counts() -> dict:
+    return {name: k.launches for fam in kernel_families()
+            for name, k in fam.items()}
 
 
-def encode_row(name, kern, ref, diff, nbytes, shape):
-    """An encoder kernel against its plain version on one group: equal
-    outputs (``diff`` gives the max abs error), kernel and plain times,
+def kernel_row(name, source, replaces, kern, ref, nbytes, shape,
+               diff=None, first_group=None):
+    """A kernel against its plain version on one group: equal outputs
+    (``diff`` gives the max abs error; by default of one tensor) and, with
+    ``first_group``, bytes equal to the corpus; kernel and plain times;
     bound. Returns the row."""
-    outs, plains = kern(), ref()
+    out, plain = kern(), ref()
     torch.cuda.synchronize()
-    err = diff(outs, plains)
+    err = (diff(out, plain) if diff else
+           int((out.int() - plain.int()).abs().max()))
     check(err == 0, f"{name} kernel differs from its plain version "
           f"(max abs err {err})")
+    if first_group is not None:
+        check(first_group(out), f"{name} kernel's first group differs from "
+              "the corpus")
     ms = cuda_ms(kern, reps=50)
     plain_ms = cuda_ms(ref, reps=5, warm=1)
-    row = {"name": name, "route": "cuda", "source": ENC_SOURCE,
-           "replaces": ENC_REPLACES[name], "launches": None,
+    row = {"name": name, "route": "cuda", "source": source,
+           "replaces": replaces, "launches": None,
            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
            "library_ms": None}
@@ -197,18 +196,18 @@ def walk_err(out, plain) -> int:
                int(torch.where(live, pos - rpos, 0).abs().max()))
 
 
-def run_compress(CE, EK, n_groups, fn, data, native_len, reps=3):
+def run_compress(EK, n_groups, fn, data, native_len, reps=3):
     """The device encode path: counters zeroed before and read after its
     first run, which must launch lcp and parse_walk once per group and no
     other kernel, decode to ``data`` and stay within 2% of the native
     archive; then the best of ``reps`` timed runs with phases. Returns
     (launches, archive)."""
-    zero_counts(CE, EK)
+    zero_counts()
     ph = {}
     t0 = time.perf_counter()
     arc = fn(ph)
     wall0 = time.perf_counter() - t0
-    counts = read_counts(CE, EK)
+    counts = read_counts()
     want = {v: (n_groups if v in EK.KERNELS else 0) for v in counts}
     check(counts == want, f"compress_device: launches {counts}, expected "
           f"{want}")
@@ -227,8 +226,7 @@ def run_compress(CE, EK, n_groups, fn, data, native_len, reps=3):
           f"{len(arc)} bytes ({len(arc) / native_len:.4f} of native "
           f"{native_len}); first wall {wall0:.4f} s; best of {reps} "
           f"{walls[best]:.4f} s = {len(data) / 1e9 / walls[best]:.4f} GB/s; "
-          "phases " + ", ".join(f"{k} {v:.4f} s"
-                                for k, v in phs[best].items()), flush=True)
+          "phases " + fmt_phases(phs[best]), flush=True)
     return counts, arc
 
 
@@ -240,17 +238,17 @@ def group_bytes_equal(data, totals, block, dispatch):
     return ok
 
 
-def run_path(CE, name, kernel, n_launch, fn, data, reps=3):
+def run_path(name, kernel, n_launch, fn, data, reps=3):
     """One main path: counters zeroed before and read after its first run,
     which must equal ``data`` with ``n_launch`` launches of ``kernel`` and
-    none of any other; then the best of ``reps`` timed runs. Returns the
-    launches."""
-    zero_counts(CE)
+    none of any other (``kernel=None``: no launch at all); then the best of
+    ``reps`` timed runs. Returns the launches."""
+    zero_counts()
     ph = {}
     t0 = time.perf_counter()
     out = fn(ph)
     wall0 = time.perf_counter() - t0
-    counts = read_counts(CE)
+    counts = read_counts()
     check(out == data, f"{name}: output differs from the corpus")
     want = {v: (n_launch if v == kernel else 0) for v in counts}
     check(counts == want, f"{name}: launches {counts}, expected {want}")
@@ -264,12 +262,15 @@ def run_path(CE, name, kernel, n_launch, fn, data, reps=3):
         check(r == data, f"{name}: repeat differs")
     best = min(range(reps), key=lambda i: walls[i])
     print(f"{name}: launches {counts}, first wall {wall0:.4f} s (phases "
-          + ", ".join(f"{k} {v:.4f}" for k, v in ph.items())
-          + f"); best of {reps} {walls[best]:.4f} s = "
+          + fmt_phases(ph) + f"); best of {reps} {walls[best]:.4f} s = "
           f"{len(data) / 1e9 / walls[best]:.4f} GB/s; phases "
-          + ", ".join(f"{k} {v:.4f} s" for k, v in phs[best].items()),
-          flush=True)
-    return counts[kernel]
+          + fmt_phases(phs[best]), flush=True)
+    return counts.get(kernel, 0)
+
+
+def fmt_phases(ph: dict) -> str:
+    return ", ".join(f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
+                     for k, v in ph.items()) or "not recorded"
 
 
 def profile_share(name, fn) -> None:
@@ -285,6 +286,8 @@ def profile_share(name, fn) -> None:
                for ev in prof.key_averages()
                if ev.device_type == torch.autograd.DeviceType.CUDA
                and ev.self_device_time_total > 0}
+    calls = {ev.key: ev.count for ev in prof.key_averages()
+             if ev.key in busy_us}
     if not busy_us:
         print(f"profile {name}: the profiler recorded no device time "
               "(device busy share not measured)", flush=True)
@@ -293,7 +296,8 @@ def profile_share(name, fn) -> None:
     busy = sum(busy_us.values()) / 1e6
     print(f"profile {name}: wall {wall:.4f} s, device busy {busy:.5f} s "
           f"(idle share {1 - busy / wall:.4f}); top: "
-          + ", ".join(f"{k[:48]} {v / 1e3:.3f} ms" for k, v in top),
+          + ", ".join(f"{k[:48]} {v / 1e3:.3f} ms ({calls[k]} calls)"
+                      for k, v in top),
           flush=True)
 
 
@@ -328,6 +332,8 @@ def main() -> None:
     from zxc_tpu_torch.codec import frame
     from zxc_tpu_torch.ops import device_pipeline as DP
     from zxc_tpu_torch.ops import batch as BT, hints as H, serial as S
+    from zxc_tpu_torch.ops import attic as AT
+    from zxc_tpu_torch.codec.seekable import Seekable
     from gen_corpus import gen_corpus
 
     smi = smi_line()
@@ -337,12 +343,13 @@ def main() -> None:
 
     # -- 1. builds, in parallel ------------------------------------------
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(3) as ex:
+    with ThreadPoolExecutor(4) as ex:
         for f in [ex.submit(fn) for fn in (runtime.lib, _build.kernels,
-                                           _build.encode_kernels)]:
+                                           _build.encode_kernels,
+                                           _build.attic_kernels)]:
             f.result()
     print(f"build: {time.perf_counter() - t0:.2f} s (libzxchost, "
-          f"copy_engine.cu and encode.cu in parallel)", flush=True)
+          f"copy_engine.cu, encode.cu and attic.cu in parallel)", flush=True)
     for ln in "".join(_build.build_logs.values()).splitlines():
         if "registers" in ln or "spill" in ln or "Compiling" in ln:
             print(f"  ptxas: {ln.strip()}")
@@ -359,14 +366,21 @@ def main() -> None:
                                         threads=threads))
     arc4 = Z.compress(data, Z.EncodeOpts(level=3, block_size=SMALL_BLOCK,
                                          threads=threads))
+    arc512 = Z.compress(data, Z.EncodeOpts(level=3, block_size=DEFAULT_BLOCK,
+                                           threads=threads))
+    arc_sek = Z.compress(data, Z.EncodeOpts(level=3, block_size=BLOCK,
+                                            seekable=True, threads=threads))
     walk = DP.walk_frame(arc)
     n_groups = -(-walk.n_blocks // DISPATCH)
     n_groups4 = -(-DP.walk_frame(arc4).n_blocks // DISPATCH)
+    n_blocks512 = DP.walk_frame(arc512).n_blocks
     print(f"corpus: {len(data)} bytes -> archive {len(arc)} bytes "
           f"({len(arc) / len(data):.4f}), {walk.n_blocks} blocks, "
           f"{n_groups} groups; 4 KiB archive {len(arc4)} bytes, "
-          f"{n_groups4} groups ({time.perf_counter() - t0:.2f} s)",
-          flush=True)
+          f"{n_groups4} groups; 512 KiB archive {len(arc512)} bytes "
+          f"({len(arc512) / len(data):.4f}), {n_blocks512} blocks; seekable "
+          f"64 KiB archive {len(arc_sek)} bytes "
+          f"({time.perf_counter() - t0:.2f} s)", flush=True)
     # hint files go to a scratch directory under the checkout's build/
     # (gitignored), removed at exit
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
@@ -395,56 +409,77 @@ def main() -> None:
         args = tuple(t.cuda() for t in host_args)
         kern, ref = CE.KERNELS[variant], CE.REFERENCES[variant]
         rows[variant] = kernel_row(
-            variant, lambda: kern(*args), lambda: ref(*args),
-            CE.bytes_moved(*host_args, K=2),
-            group_bytes_equal(data, buf.totals, BLOCK, DISPATCH),
-            f"MAXQ={pipe.MAXQ} RLP={pipe.RLP} NG32={pipe.NG32}")
+            f"v{variant}", SOURCE, REPLACES[variant], lambda: kern(*args),
+            lambda: ref(*args), CE.bytes_moved(*host_args, K=2),
+            f"MAXQ={pipe.MAXQ} RLP={pipe.RLP} NG32={pipe.NG32}",
+            first_group=group_bytes_equal(data, buf.totals, BLOCK, DISPATCH))
     pipe = DP.DevicePipeline(walk, arc, dispatch=DISPATCH, variant=None,
                              hint=hint)
     check(pipe.variant == 27, f"the hint selected v{pipe.variant}, not v27")
     buf, host_args = pipe.prep_group(0)
     args = tuple(t.cuda() for t in host_args)
     rows[27] = kernel_row(
-        27, lambda: CE.v27(*args, RLP=pipe.RLP, K=pipe.K),
+        "v27", SOURCE, REPLACES[27],
+        lambda: CE.v27(*args, RLP=pipe.RLP, K=pipe.K),
         lambda: CE.v27_reference(*args, RLP=pipe.RLP, K=pipe.K),
         CE.bytes_moved(*host_args[:2], *host_args[3:], K=pipe.K,
                        loff=host_args[2], RLP=pipe.RLP),
-        group_bytes_equal(data, buf.totals, BLOCK, DISPATCH),
-        f"RLP={pipe.RLP} ROWS_TOT={pipe.rows_tot} (flat)")
-    plan4 = BT.plan_frame(arc4)
-    first = slice(0, DISPATCH)
-    sub = BT.FramePlan(plan4.block_size, plan4.ll[first], plan4.ml[first],
-                       plan4.off[first], plan4.lit[first],
-                       plan4.totals[first], plan4.dict_buf)
-    pieces, lits = BT.resolve_serial(sub)
-    (group,) = S.pack_groups(pieces, lits, sub.totals, SMALL_BLOCK, True,
+        f"RLP={pipe.RLP} ROWS_TOT={pipe.rows_tot} (flat)",
+        first_group=group_bytes_equal(data, buf.totals, BLOCK, DISPATCH))
+    def first_group_plan(a):
+        """The first DISPATCH blocks of archive ``a``, resolved as the
+        serial route resolves them: (totals, pieces, lits)."""
+        plan = BT.plan_frame(a)
+        first = slice(0, DISPATCH)
+        sub = BT.FramePlan(plan.block_size, ll=plan.ll[first],
+                           ml=plan.ml[first], off=plan.off[first],
+                           lit=plan.lit[first], totals=plan.totals[first],
+                           dict_buf=plan.dict_buf)
+        return (sub.totals,) + BT.resolve_serial(sub)
+
+    totals4, pieces, lits = first_group_plan(arc4)
+    (group,) = S.pack_groups(pieces, lits, totals4, SMALL_BLOCK, True,
                              DISPATCH)
     args = CE.group_from_numpy(*group, device="cuda")
     rows[13] = kernel_row(
-        13, lambda: CE.v13(*args), lambda: CE.v13_reference(*args),
+        "v13", SOURCE, REPLACES[13], lambda: CE.v13(*args),
+        lambda: CE.v13_reference(*args),
         CE.bytes_moved(*group, K=1, rows=CE.V13_ROWS),
-        group_bytes_equal(data, sub.totals, SMALL_BLOCK, DISPATCH),
-        f"MAXQ={group[1].shape[1]} RLP={group[4].shape[1]}")
+        f"MAXQ={group[1].shape[1]} RLP={group[4].shape[1]}",
+        first_group=group_bytes_equal(data, totals4, SMALL_BLOCK, DISPATCH))
+    totals64, pieces, lits = first_group_plan(arc)
+    (group,) = AT.pack_groups(pieces, lits, totals64, BLOCK, DISPATCH)
+    args = [torch.from_numpy(a).cuda() for a in group]
+    rows["attic"] = kernel_row(
+        "attic", ATTIC_SOURCE, ATTIC_REPLACES,
+        lambda: AT.piece_serial(*args, block=BLOCK, fill_from_s=True),
+        lambda: AT.piece_serial_reference(*args, block=BLOCK,
+                                          fill_from_s=True),
+        AT.bytes_moved(pieces, lits, BLOCK),
+        f"variant 2, B={DISPATCH} pieces={sum(len(p[0]) for p in pieces)} "
+        f"PR={group[2].shape[1]} RL={group[3].shape[1]}",
+        first_group=group_bytes_equal(data, totals64, BLOCK, DISPATCH))
+    del args
 
     params = frame.level_params(ENC_LEVEL)
     grp = torch.from_numpy(np.frombuffer(data, np.uint8, DISPATCH * BLOCK)
                            .reshape(DISPATCH, BLOCK).copy()).cuda()
     pc = ENC.lcp_inputs(grp, params.n_candidates)[0]
-    enc_rows = {"lcp": encode_row(
-        "lcp", lambda: EK.lcp(grp, pc), lambda: EK.lcp_reference(grp, pc),
-        lambda o, r: int((o - r).abs().max()),
+    enc_rows = {"lcp": kernel_row(
+        "lcp", ENC_SOURCE, ENC_REPLACES["lcp"], lambda: EK.lcp(grp, pc),
+        lambda: EK.lcp_reference(grp, pc),
         EK.lcp_bytes_moved(DISPATCH, BLOCK, pc.shape[1]),
         f"B={DISPATCH} n={BLOCK} K={params.n_candidates} "
         f"pairs={pc.numel()}")}
     lens = ENC.find_matches_device_lcp_batch(grp, params.n_candidates)[0]
     step = ENC.walk_steps(lens, params.lazy, params.min_emit)
     chain = EK.walk_chain(step)
-    enc_rows["parse_walk"] = encode_row(
-        "parse_walk", lambda: EK.parse_walk(step),
-        lambda: EK.parse_walk_reference(step), walk_err,
+    enc_rows["parse_walk"] = kernel_row(
+        "parse_walk", ENC_SOURCE, ENC_REPLACES["parse_walk"],
+        lambda: EK.parse_walk(step), lambda: EK.parse_walk_reference(step),
         EK.walk_bytes_moved(step),
         f"B={DISPATCH} P={BLOCK} chain max {chain.max()} mean "
-        f"{chain.mean():.0f} steps")
+        f"{chain.mean():.0f} steps", diff=walk_err)
     print(f"parse_walk: {enc_rows['parse_walk']['ms'] * 1e6 / chain.max():.1f}"
           " ns per step of the longest chain", flush=True)
     del grp, pc, lens, step
@@ -454,7 +489,7 @@ def main() -> None:
     cold = {26: None, 19: None}
     for variant in cold:
         rows[variant]["launches"] = run_path(
-            CE, f"e2e v{variant} (cold)", variant, n_groups,
+            f"e2e v{variant} (cold)", variant, n_groups,
             lambda ph: Z.decompress_e2e(arc, device="cuda", variant=variant,
                                         _phases=ph), data)
         fp = Z.decompress_e2e(arc, device="cuda", variant=variant,
@@ -464,7 +499,7 @@ def main() -> None:
     # the hint path: the first run ships the control pages to the card
     # (the HintFile keeps them), the timed repeats ship lit only
     rows[27]["launches"] = run_path(
-        CE, "e2e hint v27", 27, n_groups,
+        "e2e hint v27", 27, n_groups,
         lambda ph: Z.decompress_e2e(arc, device="cuda", hint=hint,
                                     _phases=ph), data)
     fp = Z.decompress_e2e(arc, device="cuda", hint=hint,
@@ -472,17 +507,52 @@ def main() -> None:
     check(fp[:2] == fp_host and fp[2:] == (walk.n_blocks, len(data)),
           f"hint v27 fingerprint {fp} vs host {fp_host}")
     print(f"e2e hint v27 fingerprint {fp[:2]} equal", flush=True)
-    run_path(CE, "e2e hint v26", 26, n_groups,
+    run_path("e2e hint v26", 26, n_groups,
              lambda ph: Z.decompress_e2e(arc, device="cuda", hint=hint,
                                          variant=26, _phases=ph), data)
-    run_path(CE, "serial v19 (64 KiB blocks)", 19, n_groups,
-             lambda ph: Z.ops.decompress(arc, device="cuda", _phases=ph),
-             data)
+    # the default ops.decompress route: piece plans expanded by tensor
+    # ops (and the chase route's pointer doubling), no hand-written kernel
+    def default_route(a, route, **kw):
+        def fn(ph):
+            out = Z.ops.decompress(a, device="cuda", _phases=ph, **kw)
+            check(ph["route"] == route, f"route {ph['route']}, not {route}")
+            return out
+        return fn
+
+    run_path("default route, 512 KiB blocks", None, 0,
+             default_route(arc512, "pieces"), data)
+    run_path("default route, 64 KiB blocks", None, 0,
+             default_route(arc, "pieces"), data)
+    run_path("chase route, 512 KiB blocks", None, 0,
+             default_route(arc512, "chase", use_pieces=False), data)
+    sek = Seekable.open_bytes(arc_sek)
+    lo, n = 3 * BLOCK + 12345, 10 * BLOCK + 777
+    run_path("decompress_range_device, 11 blocks of 64 KiB", None, 0,
+             lambda ph: sek.decompress_range_device(lo, n),
+             data[lo:lo + n])
+    run_path("serial v19 (64 KiB blocks)", 19, n_groups,
+             lambda ph: Z.ops.decompress(arc, device="cuda", use_serial=True,
+                                         _phases=ph), data)
     rows[13]["launches"] = run_path(
-        CE, "serial v13 (4 KiB blocks)", 13, n_groups4,
-        lambda ph: Z.ops.decompress(arc4, device="cuda", _phases=ph), data)
+        "serial v13 (4 KiB blocks)", 13, n_groups4,
+        lambda ph: Z.ops.decompress(arc4, device="cuda", use_serial=True,
+                                    _phases=ph), data)
+    rows["attic"]["launches"] = run_path(
+        "serial attic variant 2 (64 KiB blocks)", "attic", n_groups,
+        lambda ph: Z.ops.decompress(arc, device="cuda", use_serial=True,
+                                    variant=2, _phases=ph), data)
+    head = data[:4 << 20]
+    arc_head = Z.compress(head, Z.EncodeOpts(level=3, block_size=BLOCK,
+                                             threads=threads))
+    for variant in (1, 3):
+        run_path(f"serial attic variant {variant} (first 4 MiB)", "attic",
+                 -(-(len(head) // BLOCK) // DISPATCH),
+                 lambda ph: Z.ops.decompress(arc_head, device="cuda",
+                                             use_serial=True,
+                                             variant=variant, _phases=ph),
+                 head, reps=1)
     counts, arc_d = run_compress(
-        CE, EK, n_groups,
+        EK, n_groups,
         lambda ph: Z.ops.compress_device(data, level=ENC_LEVEL,
                                          block_size=BLOCK, _phases=ph),
         data, len(arc))
@@ -510,6 +580,11 @@ def main() -> None:
         arc, device="cuda", variant=26))
     profile_share("e2e hint v27", lambda: Z.decompress_e2e(
         arc, device="cuda", hint=hint))
+    profile_share("default route, 512 KiB blocks", lambda: Z.ops.decompress(
+        arc512, device="cuda"))
+    # the chase route's gathers: 5 fixed ones, one scatter, one a round
+    profile_share("chase route, 512 KiB blocks", lambda: Z.ops.decompress(
+        arc512, device="cuda", use_pieces=False))
     profile_share("compress_device", lambda: Z.ops.compress_device(
         data, level=ENC_LEVEL, block_size=BLOCK))
 
@@ -531,10 +606,14 @@ def main() -> None:
                 bytes(bad), ck, device="cuda")),
             ("truncated archive", lambda: Z.decompress_e2e(
                 small[:len(small) // 2], device="cuda")),
-            ("flipped payload byte, serial", lambda: Z.ops.decompress(
+            ("flipped payload byte, default route", lambda: Z.ops.decompress(
                 bytes(bad), ck, device="cuda")),
-            ("truncated archive, serial", lambda: Z.ops.decompress(
+            ("truncated archive, default route", lambda: Z.ops.decompress(
                 small[:len(small) // 2], device="cuda")),
+            ("flipped payload byte, serial", lambda: Z.ops.decompress(
+                bytes(bad), ck, device="cuda", use_serial=True)),
+            ("truncated archive, serial", lambda: Z.ops.decompress(
+                small[:len(small) // 2], device="cuda", use_serial=True)),
             ("hint of another archive", lambda: Z.decompress_e2e(
                 arc, device="cuda", hint=small_hint)),
             ("truncated hint", lambda: Z.decompress_e2e(
@@ -550,8 +629,12 @@ def main() -> None:
     check(Z.decompress_e2e(small, device="cuda", hint=small_hint)
           == data[:4 * BLOCK], "the unflipped small hint does not decode")
 
-    print(json.dumps({"kernels": [rows[v] for v in (19, 26, 27, 13)]
-                      + [enc_rows[k] for k in ("lcp", "parse_walk")]}))
+    kernels = ([rows[v] for v in (19, 26, 27, 13)]
+               + [enc_rows[k] for k in ("lcp", "parse_walk")]
+               + [rows["attic"]])
+    check(len(kernels) == 7 and all(r["launches"] for r in kernels),
+          f"kernel rows without launches: {kernels}")
+    print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -1,7 +1,9 @@
 """Card tests of the PyTorch port: each CUDA kernel (v19, v26, v27, v13,
-lcp, parse_walk) against its plain PyTorch version on the card, on valid
-and on garbage control, and the cold, hint and serial decodes and the
-device encode through the kernels against the CPU path. They need an NVIDIA card with
+lcp, parse_walk, the attic's piece-serial kernel) against its plain
+PyTorch version on the card, on valid and on garbage control, and the
+cold, hint, serial and attic decodes, the default expansion route (no
+hand-written kernel), ``Seekable.decompress_range_device`` and the device
+encode against the CPU path. They need an NVIDIA card with
 nvcc, are marked ``cuda`` and skip without one. On the card:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
@@ -159,8 +161,9 @@ def test_serial_on_card(card, block):
     arc = Z.compress(data, Z.EncodeOpts(level=3, block_size=block))
     kern = CE.v13 if block < 16384 else CE.v19
     before = kern.launches
-    out = Z.ops.decompress(arc)
-    assert out == data == Z.ops.decompress(arc, device="cpu")
+    out = Z.ops.decompress(arc, use_serial=True)
+    assert out == data == Z.ops.decompress(arc, device="cpu",
+                                           use_serial=True)
     assert kern.launches - before == -(-(-(-len(data) // block)) // 16)
 
 
@@ -249,3 +252,107 @@ def test_compress_device_on_card_equals_cpu(card, level):
     assert arc == Z.ops.compress_device(data, level=level, block_size=65536,
                                         device="cpu")
     assert Z.codec.frame.decompress(arc) == data
+
+
+def random_pieces(seed: int, B: int, block: int, garbage: bool):
+    """(npieces, totals, pcs, lit8) of the attic kernel made with numpy:
+    piece starts ascending from 0 with [c, s, k] that keep sources inside
+    the lit row, or with ``garbage`` any int32 s, k below 1 and huge, c
+    past both ends of the row, counts past pcs and totals below 0 and
+    past the block (starts stay ascending: the
+    kernel's contract)."""
+    rng = np.random.default_rng(seed)
+    n = int(rng.integers(1, block // 8))
+    PR = -(-(n + 1) * 4 // 128)
+    pcs = np.zeros((B, PR, 128), np.int32)
+    f = pcs.reshape(B, -1, 4)
+    RL = 40
+    for b in range(B):
+        po = np.sort(rng.integers(0, block, n))
+        po[0] = 0
+        f[b, :n, 0] = po
+        f[b, n:, 0] = block + np.arange(f.shape[1] - n)   # still ascending
+        if garbage:
+            f[b, :n, 1] = rng.integers(-300, RL * 128 + 300, n)
+            f[b, :n, 2] = rng.integers(-2**31, 2**31, n)
+            f[b, :n, 3] = rng.choice([-5, 0, 1, 1, 9, 2**31 - 1], n)
+        else:
+            k = rng.choice([1, 2, 3, 7, 64, 500], n)
+            f[b, :n, 3] = k
+            f[b, :n, 1] = k + rng.integers(0, 2000, n)
+            f[b, :n, 2] = po + rng.integers(-600, 600, n)
+    npieces = np.full(B, n, np.int32)
+    totals = np.full(B, block, np.int32)
+    if garbage:
+        npieces = rng.integers(-2, f.shape[1] + 50, B).astype(np.int32)
+        totals = rng.integers(-5, block + 3000, B).astype(np.int32)
+    lit8 = rng.integers(0, 256, (B, RL, 128), dtype=np.uint8)
+    return npieces, totals, pcs, lit8
+
+
+@pytest.mark.parametrize("garbage", [False, True])
+@pytest.mark.parametrize("fill_from_s", [False, True])
+def test_attic_kernel_equals_plain_version_on_card(card, fill_from_s,
+                                                   garbage):
+    from zxc_tpu_torch.ops import attic as A
+    for seed, (B, block) in enumerate(((1, 1024), (3, 4096), (16, 65536))):
+        t = [torch.from_numpy(a).to(card)
+             for a in random_pieces(seed, B, block, garbage)]
+        before = A.piece_serial.launches
+        out = A.piece_serial(*t, block=block, fill_from_s=fill_from_s)
+        torch.cuda.synchronize()
+        assert A.piece_serial.launches == before + 1
+        assert torch.equal(out, A.piece_serial_reference(
+            *t, block=block, fill_from_s=fill_from_s))
+
+
+@pytest.mark.parametrize("variant", [1, 2, 3])
+def test_attic_route_on_card(card, variant):
+    from zxc_tpu_torch.ops import attic as A, batch as BT
+    data = _card_corpus(7)
+    arc = Z.compress(data, Z.EncodeOpts(level=3, block_size=16384))
+    plan = BT.plan_frame(arc)
+    pieces, lits = BT.resolve_serial(plan)
+    for args in A.pack_groups(pieces, lits, plan.totals, 16384, 4):
+        t = [torch.from_numpy(a).to(card) for a in args]
+        fill = variant != 1
+        assert torch.equal(
+            A.piece_serial(*t, block=16384, fill_from_s=fill),
+            A.piece_serial_reference(*t, block=16384, fill_from_s=fill))
+    before = A.piece_serial.launches
+    assert Z.ops.decompress(arc, use_serial=True, variant=variant,
+                            dispatch=4) == data
+    assert A.piece_serial.launches - before == -(-plan.n_blocks // 4)
+
+
+def _all_launches():
+    from zxc_tpu_torch.ops import attic as A, encode_kernels as EK
+    return (sum(k.launches for k in CE.KERNELS.values())
+            + sum(k.launches for k in EK.KERNELS.values())
+            + A.piece_serial.launches)
+
+
+@pytest.mark.parametrize("block", [4096, 65536])
+def test_default_and_chase_routes_on_card(card, block):
+    data = _card_corpus(8)
+    arc = Z.compress(data, Z.EncodeOpts(level=3, block_size=block))
+    before = _all_launches()
+    for kw in ({}, dict(use_pieces=False)):
+        ph = {}
+        assert Z.ops.decompress(arc, _phases=ph, batch=8, **kw) == data \
+            == Z.ops.decompress(arc, device="cpu", batch=8, **kw)
+        assert ph["route"] == ("chase" if kw else "pieces")
+    assert _all_launches() == before    # tensor ops only
+
+
+def test_decompress_range_device_on_card(card):
+    data = _card_corpus(9)
+    arc = Z.compress(data, Z.EncodeOpts(level=3, block_size=16384,
+                                        seekable=True))
+    sek = Z.seekable.Seekable.open_bytes(arc)
+    before = _all_launches()
+    for off, length in ((0, len(data)), (16384 - 5, 3 * 16384 + 11)):
+        assert sek.decompress_range_device(off, length, batch=4) == \
+            sek.decompress_range_device(off, length, device="cpu",
+                                        batch=4) == data[off:off + length]
+    assert _all_launches() == before

@@ -1,6 +1,6 @@
 """The PyTorch port stands alone: it imports neither jax nor anything of
 ``zxc_tpu``, it never falls back silently to the CPU, and a missing native
-library or kernel build (copy engine or encoder) raises."""
+library or kernel build (copy engine, encoder or attic) raises."""
 import ast
 import os
 import subprocess
@@ -12,7 +12,7 @@ import torch
 
 import zxc_tpu_torch as Z
 from zxc_tpu_torch import buildlib, runtime
-from zxc_tpu_torch.ops import _build, copy_engine as CE
+from zxc_tpu_torch.ops import _build, attic as AT, copy_engine as CE
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "zxc_tpu_torch")
@@ -32,7 +32,8 @@ def test_import_leaves_jax_and_zxc_tpu_out():
             "zxc_tpu_torch.ops.serial, zxc_tpu_torch.codec.block_decode, "
             "zxc_tpu_torch.codec.huffman, zxc_tpu_torch.format.varint, "
             "zxc_tpu_torch.ops.encode, zxc_tpu_torch.ops.encode_kernels, "
-            "zxc_tpu_torch.codec.block_encode\n"
+            "zxc_tpu_torch.codec.block_encode, zxc_tpu_torch.ops.expand, "
+            "zxc_tpu_torch.ops.attic, zxc_tpu_torch.codec.seekable\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'jaxlib')) or m == 'zxc_tpu' "
             "or m.startswith('zxc_tpu.'))\n"
@@ -69,9 +70,15 @@ def test_no_device_means_cuda_and_raises_without_it(tmp_path):
                     "cannot be observed")
     arc = Z.compress(b"abc" * 10000, Z.EncodeOpts(level=3, block_size=16384))
     hint = Z.write_hints(arc, str(tmp_path / "a.zxh"))
+    sek = Z.seekable.Seekable.open_bytes(Z.compress(
+        b"abc" * 10000, Z.EncodeOpts(level=3, block_size=4096,
+                                     seekable=True)))
     for call in (lambda **kw: Z.decompress_e2e(arc, **kw),
                  lambda **kw: Z.decompress_e2e(arc, hint=hint, **kw),
-                 lambda **kw: Z.ops.decompress(arc, **kw)):
+                 lambda **kw: Z.ops.decompress(arc, **kw),
+                 lambda **kw: Z.ops.decompress(arc, use_serial=True, **kw),
+                 lambda **kw: Z.ops.decompress(arc, use_pieces=False, **kw),
+                 lambda **kw: sek.decompress_range_device(0, 30000, **kw)):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
         with pytest.raises(RuntimeError, match="CUDA"):
@@ -96,8 +103,24 @@ def test_wrappers_refuse_other_devices():
         CE.v13(*t13)
     with pytest.raises(ValueError):
         Z.decompress_e2e(b"", device="meta")
-    with pytest.raises(ValueError):
-        Z.ops.decompress(b"", device="meta")
+    for kw in ({}, dict(use_serial=True), dict(use_serial=True, variant=2)):
+        with pytest.raises(ValueError, match="cuda or cpu"):
+            Z.ops.decompress(b"", device="meta", **kw)
+    sek = Z.seekable.Seekable.open_bytes(Z.compress(
+        b"abc" * 3000, Z.EncodeOpts(level=3, block_size=4096,
+                                    seekable=True)))
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        sek.decompress_range_device(0, 10, device="meta")
+    plan = Z.ops.plan_frame(Z.compress(b"abc" * 3000, Z.EncodeOpts(
+        level=3, block_size=4096)))
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        Z.ops.decode_plan_device(plan, device="meta")
+    att = (torch.zeros(1, dtype=torch.int32, device="meta"),
+           torch.zeros(1, dtype=torch.int32, device="meta"),
+           torch.zeros((1, 24, 128), dtype=torch.int32, device="meta"),
+           torch.zeros((1, 40, 128), dtype=torch.uint8, device="meta"))
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        AT.piece_serial(*att, block=1024, fill_from_s=True)
 
 
 def test_missing_native_library_raises(tmp_path, monkeypatch):
@@ -129,6 +152,14 @@ def test_failed_encode_kernel_build_raises(tmp_path, monkeypatch):
         _build.encode_kernels()
 
 
+def test_failed_attic_kernel_build_raises(tmp_path, monkeypatch):
+    monkeypatch.setattr(_build, "_libs", {})
+    monkeypatch.setattr(buildlib, "BUILD_DIR", str(tmp_path / "build"))
+    monkeypatch.setattr(_build, "_nvcc", lambda: str(tmp_path / "no-nvcc"))
+    with pytest.raises(RuntimeError, match="building attic failed"):
+        _build.attic_kernels()
+
+
 def test_nvcc_absent_raises(monkeypatch):
     monkeypatch.setattr(_build, "_libs", {})
     monkeypatch.setattr(_build.shutil, "which", lambda name: None)
@@ -137,6 +168,8 @@ def test_nvcc_absent_raises(monkeypatch):
         _build.kernels()
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.encode_kernels()
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.attic_kernels()
 
 
 def test_build_cache_rebuilds_on_source_change(tmp_path, monkeypatch):

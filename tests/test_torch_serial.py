@@ -301,37 +301,49 @@ def _jax_serial(plan_j, block, variant):
 def test_serial_decompress_equals_jax_and_plaintext(name, block):
     data, arc, do = _case(name, block)
     ph = {}
-    out = Z.ops.decompress(arc, _pdo(do), device="cpu", dispatch=4,
-                           _phases=ph)
+    out = Z.ops.decompress(arc, _pdo(do), device="cpu", use_serial=True,
+                           dispatch=4, _phases=ph)
     assert out == data
-    assert set(ph) == {"plan", "resolve", "pack", "device", "total"}
+    assert set(ph) == {"plan", "resolve", "pack", "device", "total",
+                       "route"} and ph["route"] == "serial"
     variant = 13 if block < 16384 else 19
     assert out == _jax_serial(JB.plan_frame(arc, do), block, variant)
     if block == 16384:       # v13 on request at 16 KiB too
-        assert Z.ops.decompress(arc, _pdo(do), device="cpu", variant=13,
-                                dispatch=4) == data
+        assert Z.ops.decompress(arc, _pdo(do), device="cpu", use_serial=True,
+                                variant=13, dispatch=4) == data
 
 
 def test_serial_empty_and_errors():
     arc = jframe.compress(b"", EncodeOpts(level=3, block_size=4096))
-    assert Z.ops.decompress(arc, device="cpu") == b""
+    assert Z.ops.decompress(arc, device="cpu", use_serial=True) == b""
     data, arc, do = _case("checksum", 4096)
     bad = bytearray(arc)
     bad[len(bad) // 2] ^= 0x41
     with pytest.raises(Z.ZxcError) as e:
-        Z.ops.decompress(bytes(bad), _pdo(do), device="cpu")
+        Z.ops.decompress(bytes(bad), _pdo(do), device="cpu", use_serial=True)
     with pytest.raises(JZxcError) as j:
         JB.plan_frame(bytes(bad), do)
     assert e.value.code == j.value.code
 
 
 def test_serial_routes_not_ported_raise(monkeypatch):
+    """The expansion route (use_serial=False) and the serial route's
+    fall-through past the piece budget equal the JAX package; device
+    entropy and attic variants past 3 still raise."""
     data, arc, _ = _case("l3", 4096)
-    for kw in (dict(use_serial=False), dict(device_entropy=True),
-               dict(variant=21)):
+    ph = {}
+    assert Z.ops.decompress(arc, device="cpu", use_serial=False,
+                            _phases=ph) == JB.decompress(arc) == data
+    assert ph["route"] == "pieces"
+    for kw in (dict(device_entropy=True), dict(use_serial=True, variant=21)):
         with pytest.raises(NotImplementedError, match="ROADMAP queue"):
             Z.ops.decompress(arc, device="cpu", **kw)
-    # a block over the resolver's piece budget needs the expansion kernels
-    monkeypatch.setattr(prt, "resolve_pieces", lambda *a, **k: None)
-    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
-        Z.ops.decompress(arc, device="cpu")
+    # a block over the resolver's piece budget: the serial route falls
+    # through to the expansion route (the chase, as no block has pieces)
+    for mod in (prt, jrt):
+        monkeypatch.setattr(mod, "resolve_pieces", lambda *a, **k: None)
+    ph = {}
+    assert Z.ops.decompress(arc, device="cpu", use_serial=True,
+                            _phases=ph) == data
+    assert ph["route"] == "chase"
+    assert JB.decompress(arc, use_serial=True) == data

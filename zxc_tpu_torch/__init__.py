@@ -5,7 +5,9 @@ package: the host layers it needs (constants, errors, format readers, the
 native runtime) are its own copies. The entry point runs on the card
 unless the caller passes ``device="cpu"``, which runs the kernels' plain
 PyTorch versions: ``decompress_e2e`` (cold, or with a ``.zxh`` hint from
-``write_hints``), ``ops.decompress`` (the serial route) and
+``write_hints``), ``ops.decompress`` (the expansion route by default,
+the serial copy engines and the attic kernel on request),
+``codec.seekable.Seekable.decompress_range_device`` and
 ``ops.compress_device`` (device encode).
 """
 from .errors import ZxcError  # noqa: F401
@@ -13,3 +15,4 @@ from .codec.frame import DecodeOpts, EncodeOpts, compress  # noqa: F401
 from .ops.device_pipeline import decompress_e2e  # noqa: F401
 from .ops.hints import write_hints, HintFile  # noqa: F401
 from . import ops  # noqa: F401
+from .codec import seekable  # noqa: F401

@@ -1,2 +1,5 @@
-"""Frame options and the native encoder the port's tests and smoke run use
-to make archives."""
+"""Host codec layers of the port: frame options and the native encoder
+and decoder (``frame``), the section parse and host block decode
+(``block_decode``), PivCo tables (``huffman``), the emitters of the device
+encoder (``block_encode``) and random access to seekable archives
+(``seekable``)."""

@@ -1,6 +1,7 @@
 """GLO / GHI / RAW block section parse: payload -> (ll, ml, off, literals),
-the parse half of ``zxc_tpu.codec.block_decode`` for the port's serial
-route (``ops.batch.plan_frame``).
+the parse half of ``zxc_tpu.codec.block_decode`` for the port's device
+decode (``ops.batch.plan_frame``), and ``decode_block``, the one-call
+native block decode that ``codec.seekable`` uses on the host.
 
 The literal section decodes natively (RLE: ``zxch_rle_decode``; PivCo:
 ``zxch_pivco_decode``), and so do the varint extras
@@ -163,3 +164,14 @@ def parse_block(block_type: int, payload: np.ndarray, dst_capacity: int,
     if block_type == C.BLOCK_GHI:
         return parse_block_ghi(payload, dst_capacity)
     raise ZxcError(ERROR_BAD_BLOCK_TYPE, f"type {block_type}")
+
+
+def decode_block(block_type: int, payload: np.ndarray, dst_capacity: int,
+                 dict_buf: np.ndarray | None = None, dict_tree=None
+                 ) -> np.ndarray:
+    """The native block decode (the JAX package's ``decode_block`` with
+    its native library; the port has no numpy decode to fall back on).
+    The caller checks the payload checksum."""
+    return runtime.decode_block(
+        block_type, payload, dst_capacity, dict_buf,
+        None if dict_tree is None else dict_tree.code_len)

@@ -74,6 +74,12 @@ def _bind_encode(L, vp, ci) -> None:
     L.zxc_parse_walk.argtypes = [vp] * 3 + [ci] * 3 + [vp]
 
 
+def _bind_attic(L, vp, ci) -> None:
+    L.zxc_piece_serial.restype = ci
+    L.zxc_piece_serial.argtypes = [vp] * 3 + [ci, vp, ctypes.c_longlong, vp,
+                                              ci, ci, ci, vp]
+
+
 def kernels() -> ctypes.CDLL:
     """The copy-engine kernel library, built on first use."""
     return _library("copy_engine", _bind_copy_engine)
@@ -83,3 +89,9 @@ def encode_kernels() -> ctypes.CDLL:
     """The device encoder's kernel library (LCP, parse walk), built on
     first use."""
     return _library("encode", _bind_encode)
+
+
+def attic_kernels() -> ctypes.CDLL:
+    """The attic route's piece-serial kernel library, built on first
+    use."""
+    return _library("attic", _bind_attic)

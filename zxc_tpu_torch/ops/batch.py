@@ -1,18 +1,29 @@
-"""Frame decode through the serial copy-engine route, the port of
-``zxc_tpu.ops.batch`` (``FramePlan``, ``plan_frame`` and
-``decompress(use_serial=True)``).
+"""Batched frame decode on the device, the port of ``zxc_tpu.ops.batch``
+(``FramePlan``, ``plan_frame``, ``decode_plan_device`` and
+``decompress``).
 
 The host parses every block's sections (``plan_frame``: headers,
-checksums, literal decode, varint extras), the native resolver flattens
-each block's matches into pure pieces, ``ops.serial`` packs them into the
-copy engine's control and the card runs one kernel per dispatch group:
-v19 for blocks of 16 KiB and up, v13 below that.
+checksums, literal decode, varint extras). Then ``decompress`` takes one
+of three routes, as the JAX package routes them:
 
-Routes the JAX package has and the port does not yet raise
-``NotImplementedError`` naming their ROADMAP item: the expansion kernels
-(``use_serial=False``, or a block whose pieces exceed the resolver's
-budget; queue 1 item 3), device entropy decode (queue 1 item 5) and the
-attic kernels (queue 1 item 1).
+* **pieces** (the default): the native resolver flattens each block's
+  match chains into pieces ``out[p] = lit[c + (p - s) % k]`` on a thread
+  pool (``FramePlan.resolve``), the blocks are padded into batches of up
+  to ``batch`` and ``expand.pieces_kernel`` runs each batch on the card;
+* **chase** (``use_pieces=False``, or any block over the resolver's piece
+  budget): the padded sequences go through ``expand.expand_kernel``, the
+  pointer-doubling expansion, with its error bits and a size check;
+* **serial** (``use_serial=True``): the resolver's ``device_pure`` pieces
+  go to a copy-engine kernel, one launch per dispatch group: v19 for
+  blocks of 16 KiB and up and v13 below (``ops.serial``), or the attic's
+  piece-serial kernel for ``variant`` 1, 2 or 3 at any block size
+  (``ops.attic``). A frame with a block over the piece budget falls
+  through to the chase route.
+
+The pieces and chase routes are PyTorch tensor ops (the JAX package's
+XLA code) and launch no hand-written kernel. Device entropy decode
+(``device_entropy=True``, ROADMAP queue 1 item 5) and the other attic
+variants (queue 1 item 1) raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -22,10 +33,11 @@ from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 
 import numpy as np
+import torch
 
 from .. import constants as C
 from ..errors import (ZxcError, ERROR_CORRUPT_DATA, ERROR_OVERFLOW,
-                      ERROR_BAD_HEADER, ERROR_SRC_TOO_SMALL,
+                      ERROR_BAD_OFFSET, ERROR_BAD_HEADER, ERROR_SRC_TOO_SMALL,
                       ERROR_BAD_CHECKSUM, ERROR_DICT_REQUIRED,
                       ERROR_DICT_MISMATCH)
 from ..format import headers
@@ -34,30 +46,67 @@ from ..format.dictionary import dict_id as compute_dict_id
 from ..codec import block_decode, huffman
 from ..codec.frame import DecodeOpts
 from .. import runtime
-from . import serial
+from . import attic, expand, serial
 from .device_pipeline import _device
+
+# Blocks expanded per device batch (the JAX package's DEFAULT_BATCH).
+DEFAULT_BATCH = 64
 
 
 @dataclass
 class FramePlan:
-    """Host-side section parse of a whole frame."""
+    """Host-side section parse of a whole frame, ready for device
+    batching (the JAX package's fields, in its order)."""
     block_size: int
     ll: list = field(default_factory=list)       # per-block int32 (n_seq,)
     ml: list = field(default_factory=list)
     off: list = field(default_factory=list)
     lit: list = field(default_factory=list)      # per-block uint8 (lit_len,)
     totals: list = field(default_factory=list)   # decoded size per block
+    pieces: list = field(default_factory=list)   # (po,pc,ps,pk,lit) or None
     dict_buf: np.ndarray | None = None
+    dict_len: int = 0
     decompressed_size: int = 0
 
     @property
     def n_blocks(self) -> int:
         return len(self.totals)
 
+    @property
+    def max_seq(self) -> int:
+        return max((len(a) for a in self.ll), default=0)
 
-def _rapidhash32(data: np.ndarray) -> int:
-    h = runtime.rapidhash64(data)
-    return (h ^ (h >> 32)) & 0xFFFFFFFF
+    @property
+    def max_lit(self) -> int:
+        return max((len(a) for a in self.lit), default=0)
+
+    @property
+    def all_pieces(self) -> bool:
+        return (self.n_blocks > 0 and len(self.pieces) == self.n_blocks
+                and all(p is not None for p in self.pieces))
+
+    @property
+    def max_pieces(self) -> int:
+        return max((len(p[0]) for p in self.pieces if p is not None),
+                   default=0)
+
+    def resolve(self, workers: int | None = None) -> None:
+        """Flatten match chains into piece plans (the native resolver, on
+        a thread pool: ctypes releases the GIL). A block over the piece
+        budget keeps ``None`` and the frame decodes through the chase
+        route."""
+        def one(i):
+            return runtime.resolve_pieces(self.ll[i], self.ml[i],
+                                          self.off[i], self.lit[i],
+                                          self.dict_buf)
+
+        if workers is None:
+            workers = min(os.cpu_count() or 1, 8)
+        if workers <= 1 or self.n_blocks <= 1:
+            self.pieces = [one(i) for i in range(self.n_blocks)]
+        else:
+            with ThreadPoolExecutor(workers) as ex:
+                self.pieces = list(ex.map(one, range(self.n_blocks)))
 
 
 def plan_frame(archive: bytes, opts: DecodeOpts | None = None) -> FramePlan:
@@ -83,7 +132,8 @@ def plan_frame(archive: bytes, opts: DecodeOpts | None = None) -> FramePlan:
             raise ZxcError(ERROR_DICT_MISMATCH)
 
     buf = np.frombuffer(archive, np.uint8)
-    plan = FramePlan(block_size=fh.block_size, dict_buf=dict_buf)
+    plan = FramePlan(block_size=fh.block_size, dict_buf=dict_buf,
+                     dict_len=0 if dict_buf is None else len(dict_buf))
     # pass 1: walk headers, collect payload spans, verify checksums
     spans: list[tuple[int, int, int]] = []   # (block_type, off, size)
     global_hash = 0
@@ -106,7 +156,7 @@ def plan_frame(archive: bytes, opts: DecodeOpts | None = None) -> FramePlan:
             end = payload_off + bh.comp_size
             stored = int(buf[end:end + 4].view("<u4")[0])
             if verify:
-                if _rapidhash32(buf[payload_off:end]) != stored:
+                if runtime.rapidhash32(buf[payload_off:end]) != stored:
                     raise ZxcError(ERROR_BAD_CHECKSUM, "block payload checksum")
                 global_hash = global_hash_update(global_hash, stored)
         spans.append((bh.block_type, payload_off, bh.comp_size))
@@ -150,11 +200,11 @@ def plan_frame(archive: bytes, opts: DecodeOpts | None = None) -> FramePlan:
 
 
 def resolve_serial(plan: FramePlan, workers: int | None = None):
-    """Every block's pure pieces and literal buffer for the copy engine
+    """Every block's pure pieces and literal buffer for the serial route
     (``max_frag=1``: the kernels pay per piece, so every multi-piece
-    source is materialized). Raises NotImplementedError when a block
-    exceeds the resolver's piece budget: the JAX package decodes such a
-    frame with its expansion kernels, which the port has not yet."""
+    source is materialized), on a thread pool. Returns (pieces, lits), or
+    (None, None) when a block exceeds the resolver's piece budget: the
+    frame then takes the expansion route, as in the JAX package."""
     def one(i):
         return runtime.resolve_pieces(plan.ll[i], plan.ml[i], plan.off[i],
                                       plan.lit[i], plan.dict_buf,
@@ -163,50 +213,217 @@ def resolve_serial(plan: FramePlan, workers: int | None = None):
     with ThreadPoolExecutor(workers or min(os.cpu_count() or 1, 8)) as ex:
         res = list(ex.map(one, range(plan.n_blocks)))
     if any(r is None for r in res):
-        raise NotImplementedError(
-            "a block exceeds the piece budget: its decode needs the "
-            "expansion kernels (ops/expand.py), ROADMAP queue 1 item 3")
+        return None, None
     return [r[:4] for r in res], [r[4] for r in res]
 
 
-def decompress(archive: bytes, opts: DecodeOpts | None = None, *,
-               device=None, use_serial: bool = True, variant: int = 19,
-               dispatch: int = 16, device_entropy: bool = False,
-               _phases: dict | None = None) -> bytes:
-    """One-shot frame decode through the serial copy-engine route.
+def _pow2(n: int, lo: int = 8) -> int:
+    return max(lo, 1 << (max(n, 1) - 1).bit_length())
+
+
+def _pad_batch(plan: FramePlan, idx: range, S: int, L: int,
+               B: int | None = None):
+    """Stack blocks idx into fixed (B, S)/(B, L) arrays (host numpy). Rows
+    past len(idx) are empty blocks (n_seq=0, lit_len=0)."""
+    if B is None:
+        B = len(idx)
+    ll = np.zeros((B, S), np.int32)
+    ml = np.zeros((B, S), np.int32)
+    off = np.ones((B, S), np.int32)
+    lit = np.zeros((B, L), np.uint8)
+    n_seq = np.zeros(B, np.int32)
+    lit_len = np.zeros(B, np.int32)
+    for j, i in enumerate(idx):
+        s = len(plan.ll[i])
+        n = len(plan.lit[i])
+        ll[j, :s] = plan.ll[i]
+        ml[j, :s] = plan.ml[i]
+        off[j, :s] = plan.off[i]
+        lit[j, :n] = plan.lit[i]
+        n_seq[j] = s
+        lit_len[j] = n
+    return ll, ml, off, lit, n_seq, lit_len
+
+
+_ERRBIT_CODES = {1: (ERROR_OVERFLOW, "literal stream exhausted"),
+                 2: (ERROR_OVERFLOW, "decoded size exceeds capacity"),
+                 4: (ERROR_BAD_OFFSET, "offset out of window")}
+
+
+def _raise_errbits(bits: int):
+    for bit, (code, msg) in _ERRBIT_CODES.items():
+        if bits & bit:
+            raise ZxcError(code, msg)
+    raise ZxcError(ERROR_CORRUPT_DATA)
+
+
+def _pad_piece_batch(plan: FramePlan, idx: range, P: int, L: int,
+                     B: int | None = None):
+    """Stack piece plans for blocks idx into fixed (B, P)/(B, L) arrays."""
+    if B is None:
+        B = len(idx)
+    po = np.zeros((B, P), np.int32)
+    pc = np.zeros((B, P), np.int32)
+    ps = np.zeros((B, P), np.int32)
+    pk = np.ones((B, P), np.int32)
+    lit = np.zeros((B, L), np.uint8)
+    n_pieces = np.zeros(B, np.int32)
+    totals = np.zeros(B, np.int32)
+    for j, i in enumerate(idx):
+        p_o, p_c, p_s, p_k, lit_full = plan.pieces[i]
+        n = len(p_o)
+        po[j, :n] = p_o
+        pc[j, :n] = p_c
+        ps[j, :n] = p_s
+        pk[j, :n] = p_k
+        lit[j, :len(lit_full)] = lit_full
+        n_pieces[j] = n
+        totals[j] = plan.totals[i]
+    return po, pc, ps, pk, lit, n_pieces, totals
+
+
+def _add(ph: dict | None, key: str, t0: float) -> float:
+    t = time.perf_counter()
+    if ph is not None:
+        ph[key] = ph.get(key, 0.0) + t - t0
+    return t
+
+
+def decode_plan_pieces_device(plan: FramePlan, batch: int = DEFAULT_BATCH,
+                              device=None, *, _phases: dict | None = None
+                              ) -> bytes:
+    """Decode through the piece-plan expansion (no pointer chase): per
+    batch one H2D, the tensor ops on ``device`` and one readback.
+    ``_phases`` accumulates ``pad`` (host) and ``device`` seconds."""
+    dev = _device(device, "decode_plan_device")
+    nb = plan.n_blocks
+    P = _pow2(plan.max_pieces)
+    L = _pow2(max(len(p[4]) for p in plan.pieces))
+    kern = expand.pieces_kernel(plan.block_size)
+    Bsz = _pow2(min(batch, nb), lo=4)
+    out_parts: list[np.ndarray] = []
+    for base in range(0, nb, Bsz):
+        t0 = time.perf_counter()
+        idx = range(base, min(base + Bsz, nb))
+        host = _pad_piece_batch(plan, idx, P, L, B=Bsz)
+        t0 = _add(_phases, "pad", t0)
+        out = kern(*(torch.from_numpy(a).to(dev) for a in host)).cpu().numpy()
+        _add(_phases, "device", t0)
+        out_parts += [out[j, :plan.totals[i]] for j, i in enumerate(idx)]
+    return np.concatenate(out_parts).tobytes() if out_parts else b""
+
+
+def decode_plan_device(plan: FramePlan, batch: int = DEFAULT_BATCH,
+                       device=None, *, _phases: dict | None = None) -> bytes:
+    """Run a FramePlan through the device expansion, batch by batch: the
+    piece-plan route when every block has pieces, else the chase route
+    (``expand.expand_kernel``), whose error bits raise ZxcError and whose
+    totals must equal the plan's. ``device``: None means cuda (raises
+    without it); "cpu" runs the same tensor ops on the CPU."""
+    dev = _device(device, "decode_plan_device")
+    nb = plan.n_blocks
+    if nb == 0:
+        return b""
+    if plan.all_pieces:
+        return decode_plan_pieces_device(plan, batch, dev, _phases=_phases)
+    S = _pow2(plan.max_seq)
+    L = _pow2(plan.max_lit)
+    has_dict = plan.dict_buf is not None
+    kern = expand.expand_kernel(plan.block_size, has_dict)
+    dict_args = ((expand.pad_dict(plan.dict_buf, dev), plan.dict_len)
+                 if has_dict else ())
+    # pow2 bucket: the JAX package's compiled shapes, kept for parity
+    Bsz = _pow2(min(batch, nb), lo=4)
+    out_parts: list[np.ndarray] = []
+    for base in range(0, nb, Bsz):
+        t0 = time.perf_counter()
+        idx = range(base, min(base + Bsz, nb))
+        host = _pad_batch(plan, idx, S, L, B=Bsz)
+        t0 = _add(_phases, "pad", t0)
+        out, total, err = kern(*(torch.from_numpy(a).to(dev) for a in host),
+                               *dict_args)
+        err_np = err.cpu().numpy()[:len(idx)]
+        total_np = total.cpu().numpy()[:len(idx)]
+        out_np = out.cpu().numpy()
+        _add(_phases, "device", t0)
+        if err_np.any():
+            _raise_errbits(int(err_np[err_np != 0][0]))
+        if not (total_np == np.asarray(plan.totals[base:base + len(idx)])
+                ).all():
+            raise ZxcError(ERROR_CORRUPT_DATA, "device/plan size disagreement")
+        out_parts += [out_np[j, :plan.totals[i]] for j, i in enumerate(idx)]
+    return np.concatenate(out_parts).tobytes() if out_parts else b""
+
+
+def _decode_serial(plan: FramePlan, pieces, lits, variant: int,
+                   dispatch: int, dev, ph: dict) -> bytes:
+    """The serial route on resolved pieces: pack every dispatch group,
+    then one kernel launch a group (v19/v13, or the attic kernel)."""
+    t0 = time.perf_counter()
+    if variant in attic.VARIANTS:
+        groups = attic.pack_groups(pieces, lits, plan.totals,
+                                   plan.block_size, dispatch)
+        t0 = _add(ph, "pack", t0)
+        res = attic.decode_groups(groups, plan.totals, plan.block_size,
+                                  variant, dev)
+    else:
+        v13 = variant == 13 or plan.block_size < 16384
+        groups = serial.pack_groups(pieces, lits, plan.totals,
+                                    plan.block_size, v13, dispatch)
+        t0 = _add(ph, "pack", t0)
+        res = serial.decode_groups(groups, plan.totals, plan.block_size,
+                                   v13, dev)
+    _add(ph, "device", t0)
+    return b"".join(res)
+
+
+def decompress(archive: bytes, opts: DecodeOpts | None = None,
+               batch: int = DEFAULT_BATCH, device=None,
+               use_pieces: bool = True, use_serial: bool = False,
+               device_entropy: bool = False, *, variant: int = 19,
+               dispatch: int = 16, _phases: dict | None = None) -> bytes:
+    """One-shot frame decode with the hot path on the card, routed as the
+    JAX package routes it (see the module docstring).
 
     ``device``: None means ``cuda`` (raises when CUDA is absent); ``"cpu"``
-    runs the kernels' plain versions. ``variant``: 19 (v13 still serves
-    blocks under 16 KiB) or 13. ``_phases``, when given, receives wall
-    seconds: ``plan`` (section parse), ``resolve`` (pieces), ``pack``
-    (lane ops and packers), ``device`` (H2D, kernels, readback) and
-    ``total``."""
-    if not use_serial:
-        raise NotImplementedError(
-            "use_serial=False runs the expansion kernels (ops/expand.py), "
-            "ROADMAP queue 1 item 3")
+    runs the same route with the kernels' plain versions. ``batch``:
+    blocks a device batch of the pieces and chase routes. ``use_serial``
+    with ``variant`` 19 (v13 still serves blocks under 16 KiB), 13, or the
+    attic's 1, 2 or 3; ``dispatch``: blocks a launch of the serial route.
+    ``_phases``, when given, receives wall seconds ``plan`` (section
+    parse), ``resolve`` (pieces), ``pad`` (batches; pieces and chase) or
+    ``pack`` (control; serial), ``device`` (H2D, device work, readback)
+    and ``total``, and ``route``: ``pieces``, ``chase`` or ``serial``."""
     if device_entropy:
         raise NotImplementedError(
             "device_entropy=True runs the device entropy decode "
             "(ops/pivco_device.py), ROADMAP queue 1 item 5")
-    if variant not in (13, 19):
+    if use_serial and variant not in (13, 19, *attic.VARIANTS):
         raise NotImplementedError(
-            f"serial variant {variant} is an attic kernel "
+            f"serial variant {variant} is an attic kernel not ported yet "
             "(tools/kernel_attic.py), ROADMAP queue 1 item 1")
-    dev = _device(device)
-    t0 = time.perf_counter()
+    dev = _device(device, "ops.decompress")
+    ph: dict = {}
+    t_start = t0 = time.perf_counter()
     plan = plan_frame(archive, opts)
-    t1 = time.perf_counter()
-    pieces, lits = resolve_serial(plan)
-    t2 = time.perf_counter()
-    v13 = variant == 13 or plan.block_size < 16384
-    groups = serial.pack_groups(pieces, lits, plan.totals, plan.block_size,
-                                v13, dispatch) if pieces else []
-    t3 = time.perf_counter()
-    res = serial.decode_groups(groups, plan.totals, plan.block_size, v13,
-                               dev) if groups else []
-    t4 = time.perf_counter()
+    t0 = _add(ph, "plan", t0)
+    out = None
+    if use_serial and plan.n_blocks:
+        pieces, lits = resolve_serial(plan)
+        t0 = _add(ph, "resolve", t0)
+        if pieces is not None:
+            out = _decode_serial(plan, pieces, lits, variant, dispatch, dev,
+                                 ph)
+            ph["route"] = "serial"
+    if out is None:
+        if use_pieces:
+            plan.resolve()
+        else:
+            plan.pieces = [None] * plan.n_blocks
+        _add(ph, "resolve", t0)
+        out = decode_plan_device(plan, batch, dev, _phases=ph)
+        ph["route"] = "pieces" if plan.all_pieces else "chase"
+    _add(ph, "total", t_start)
     if _phases is not None:
-        _phases.update(plan=t1 - t0, resolve=t2 - t1, pack=t3 - t2,
-                       device=t4 - t3, total=t4 - t0)
-    return b"".join(res)
+        _phases.update(ph)
+    return out

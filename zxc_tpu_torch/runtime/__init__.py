@@ -6,9 +6,10 @@ the device decode paths call: the frame walk and batched payload checksum,
 the fused per-block prep of the copy engine's control
 (``zxch_v19_prep_block`` / ``zxch_v26_prep_block``) and its hint-writing
 form (``*_prep_block_plan``), the hint replay of the literal window
-(``zxch_v19_lit8_load[_batch]``), the section parsers of the serial route
+(``zxch_v19_lit8_load[_batch]``), the section parsers of ``plan_frame``
 (RLE literals, varint extras, PivCo entropy), the piece resolver and
-lane-op splitter, the host frame decoder (the hint body is itself a
+lane-op splitter, the host block decoder (``Seekable``), the host frame
+decoder (the hint body is itself a
 frame), rapidhash64, the native frame encoder, and the section emitters
 of the device encoder's host half (PivCo encode, RLE literals and
 package-merge code lengths).
@@ -89,6 +90,8 @@ def _bind(L: ctypes.CDLL) -> None:
     L.zxch_v19_lit8_load_batch.argtypes = [vp, vp, vp, vp, i64, i64, i64, u64,
                                            vp, u64, vp, vp, vp, vp, vp, vp,
                                            i64, vp]
+    L.zxch_decode_block.restype = i64
+    L.zxch_decode_block.argtypes = [ci, vp, u64, vp, u64, vp, u64, vp]
     L.zxch_decompress_frame.restype = i64
     L.zxch_decompress_frame.argtypes = [vp, u64, u64, ci, ci, vp, u64, vp, vp,
                                         u64]
@@ -412,6 +415,29 @@ def rapidhash64(data, seed: int = 0) -> int:
         data, (bytes, bytearray, memoryview)) else np.ascontiguousarray(
         data, np.uint8)
     return int(lib().zxch_rapidhash64(_ptr(a), len(a), seed))
+
+
+def rapidhash32(data) -> int:
+    """The per-block payload checksum: rapidhash64 folded to 32 bits."""
+    h = rapidhash64(data)
+    return (h ^ (h >> 32)) & 0xFFFFFFFF
+
+
+def decode_block(block_type: int, payload: np.ndarray, block_size: int,
+                 dict_buf: np.ndarray | None = None,
+                 dict_cl: np.ndarray | None = None) -> np.ndarray:
+    """One block's payload decoded natively (section parse, entropy
+    literals and expansion in one call, ``zxch_decode_block``). Raises
+    ZxcError with the native code on malformed input."""
+    L = lib()
+    pl = np.ascontiguousarray(payload, np.uint8)
+    d8, cl8, cl_ptr = _as_dict_args(dict_buf, dict_cl)
+    dst = np.empty(block_size + 64, np.uint8)
+    n = L.zxch_decode_block(block_type, _ptr(pl), len(pl), _ptr(dst),
+                            block_size, _ptr(d8), len(d8), cl_ptr)
+    if n < 0:
+        raise ZxcError(int(n), "native block decode")
+    return dst[:n]
 
 
 def rle_decode(stream: np.ndarray, out_size: int) -> np.ndarray:
