@@ -8,8 +8,8 @@ Phases, in order; any failure exits non-zero before the result line:
 1. the card's name and power limit (nvidia-smi); build the native host
    runtime (g++), the copy-engine kernels v19/v26/v27/v13
    (``csrc/copy_engine.cu``, nvcc, sm_90a), the encoder's kernels
-   lcp/parse_walk (``csrc/encode.cu``) and the attic's piece-serial kernel
-   (``csrc/attic.cu``) in parallel;
+   lcp/parse_walk (``csrc/encode.cu``) and the attic's piece-serial,
+   window-merge and lane-sum kernels (``csrc/attic.cu``) in parallel;
 2. the pinned 32 MiB corpus (tools/gen_corpus.py, sha256 checked against
    tools/corpus_manifest.json), encoded by the port's native encoder at
    level 3 with 64 KiB blocks (512 blocks, 32 dispatch groups of 16), with
@@ -21,14 +21,20 @@ Phases, in order; any failure exits non-zero before the result line:
    prep; v27: the hint's control and the batch replay's flat lit; v13: the
    4 KiB archive as ``ops/serial.py`` packs it; the attic kernel: the
    64 KiB archive as ``ops.decompress(use_serial=True, variant=2)`` packs
-   it; lcp and parse_walk: the first 16 blocks of the corpus at level 3 as
+   it; the window merge in modes v4-v7 and the lane sum in modes v9-v11:
+   the same blocks as ``attic.decode_blocks_v4/v9/v10/v11`` pack them;
+   lcp and parse_walk: the first 16 blocks of the corpus at level 3 as
    ``ops/encode.py`` feeds them): equal output, the kernel's median time
    over CUDA-event-timed launches, the plain version's time and the bytes
    bound (``copy_engine.bytes_moved``: the group's live control and the
    window rows it reads, read once, and the output written once;
    ``attic.bytes_moved``: 16 bytes a piece, each literal byte once and the
-   output once; ``encode_kernels.lcp_bytes_moved`` / ``walk_bytes_moved``;
-   over 3.35 TB/s), and the walk's dependent chain;
+   output once; ``attic.bytes_moved_window`` / ``bytes_moved_lane``: the
+   live ops' control, each literal byte once and the output once;
+   ``encode_kernels.lcp_bytes_moved`` / ``walk_bytes_moved``; over
+   3.35 TB/s), the time a call of 20 queued back to back behind a spin
+   (an event pair around one call of an idle card also holds the host's
+   launch path), and the walk's dependent chain;
 4. the main paths, each with every launch counter set to 0 just before
    and read just after; each output must equal the corpus (or its range)
    and each path's kernel must have launched once per group and no other
@@ -41,7 +47,11 @@ Phases, in order; any failure exits non-zero before the result line:
    seekable archive, also kernel-free; the serial route
    ``ops.decompress(use_serial=True)`` with v19 at 64 KiB blocks, v13 at
    4 KiB blocks and the attic kernel (variant 2) at 64 KiB blocks, and
-   variants 1 and 3 on the first 4 MiB; the device encode
+   variants 1 and 3 on the first 4 MiB; the attic's window-op and
+   lane-op entries ``attic.decode_blocks_v4`` (variant 4),
+   ``decode_blocks_v9``, ``v10`` and ``v11`` over the 64 KiB archive and
+   ``decode_blocks_v4`` with variants 5, 6 and 7 over its first 4 MiB,
+   on one shared section parse and resolve; the device encode
    ``ops.compress_device`` of the corpus at level 3 with 64 KiB blocks
    (lcp and parse_walk once per group of 16 blocks). Fingerprint forms
    must equal the fingerprints computed on the host; the device encode's
@@ -85,6 +95,15 @@ SMALL_BLOCK = 4 << 10
 DEFAULT_BLOCK = 512 << 10     # the encoder's default block size
 ATTIC_SOURCE = "zxc_tpu_torch/csrc/attic.cu"
 ATTIC_REPLACES = "tools/kernel_attic.py:272"
+# the attic's window-op (v4-v7: one pallas_call) and lane-op kernels
+ATTIC_V_REPLACES = {4: "tools/kernel_attic.py:483",
+                    5: "tools/kernel_attic.py:483",
+                    6: "tools/kernel_attic.py:483",
+                    7: "tools/kernel_attic.py:483",
+                    9: "tools/kernel_attic.py:831",
+                    10: "tools/kernel_attic.py:989",
+                    11: "tools/kernel_attic.py:1102"}
+HEAD_BLOCKS = 64              # the first 4 MiB at 64 KiB blocks
 REPLACES = {19: "zxc_tpu/ops/pallas_decode.py:1306",
             26: "zxc_tpu/ops/pallas_decode.py:1038",
             27: "zxc_tpu/ops/pallas_decode.py:1188",
@@ -132,6 +151,28 @@ def cuda_ms(fn, reps: int, warm: int = 2) -> float:
     return statistics.median(a.elapsed_time(b) for a, b in pairs)
 
 
+SPIN_CYCLES = 50_000_000      # ~25 ms of the card's clock
+
+
+def device_ms(fn, n: int = 20) -> float:
+    """Device time of one call of ``fn`` in ms, back to back: one event
+    pair around ``n`` calls that the host queues while the card spins
+    (``torch.cuda._sleep``), so the card never waits for the host's
+    launch path, which an event pair around one call of an idle card
+    holds. ``fn`` must not synchronise."""
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SPIN_CYCLES)
+    a.record()
+    for _ in range(n):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / n
+
+
 def host_fingerprint(data: bytes, block: int) -> tuple[int, int]:
     """f1 = sum of bytes, f2 = sum of byte * (offset in block % 8191),
     both mod 2^32 (the JAX package's device fingerprint)."""
@@ -175,6 +216,7 @@ def kernel_row(name, source, replaces, kern, ref, nbytes, shape,
               "the corpus")
     ms = cuda_ms(kern, reps=50)
     plain_ms = cuda_ms(ref, reps=5, warm=1)
+    dev_ms = device_ms(kern)
     row = {"name": name, "route": "cuda", "source": source,
            "replaces": replaces, "launches": None,
            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
@@ -182,7 +224,8 @@ def kernel_row(name, source, replaces, kern, ref, nbytes, shape,
            "library_ms": None}
     print(f"kernel {name}: {shape}, {nbytes} bytes to move; {ms:.4f} ms "
           f"(median of 50) vs plain {plain_ms:.2f} ms, bound "
-          f"{row['bound_ms']:.6f} ms; equal", flush=True)
+          f"{row['bound_ms']:.6f} ms; {dev_ms:.4f} ms a call back to back "
+          "(20 queued behind a spin); equal", flush=True)
     return row
 
 
@@ -266,6 +309,63 @@ def run_path(name, kernel, n_launch, fn, data, reps=3):
           f"{len(data) / 1e9 / walls[best]:.4f} GB/s; phases "
           + fmt_phases(phs[best]), flush=True)
     return counts.get(kernel, 0)
+
+
+def attic_rows(AT, pieces, lits, totals, data) -> dict:
+    """The window merge in modes 4-7 and the lane sum in modes 9-11
+    against their plain versions on one dispatch group, packed as
+    ``attic.decode_blocks_v4/v9/v10/v11`` pack it."""
+    def row(v, host, kern, ref, nbytes, shape):
+        args = [torch.from_numpy(a).cuda() for a in host]
+        return kernel_row(f"v{v}", ATTIC_SOURCE, ATTIC_V_REPLACES[v],
+                          lambda: kern(*args), lambda: ref(*args), nbytes,
+                          shape, first_group=group_bytes_equal(
+                              data, totals, BLOCK, len(pieces)))
+
+    out = {}
+    for v in (4, 5, 6, 7):
+        host, (OR, RL, NW) = AT.pack_blocks_v4(
+            pieces, lits, totals, BLOCK, split_src=v >= 5,
+            pad_unroll={6: AT.UNROLL, 7: AT.UNROLL7}.get(v, 0))
+        n_ops = int(host[0][:, -1].sum())
+        out[v] = row(v, host,
+                     lambda *a: AT.window_merge(*a, block=BLOCK, mode=v),
+                     lambda *a: AT.window_merge_reference(*a, block=BLOCK,
+                                                          mode=v),
+                     AT.bytes_moved_window(host[0], host[1], lits, BLOCK),
+                     f"window merge mode {v}, {n_ops} ops (padding "
+                     f"included), OR={OR} RL={RL} NW={NW}")
+    nb, ts, rws, pctrl, lit32 = AT.pack_blocks_v9(pieces, lits, totals,
+                                                  BLOCK)
+    out[9] = row(9, (pctrl, lit32, ts, rws),
+                 lambda pc, l, t, r: AT.lane_sum(pc, l, BLOCK, 9, ts=t,
+                                                 rows=r),
+                 lambda pc, l, t, r: AT.lane_sum_reference(
+                     pc, l, BLOCK, 9, ts=t, rows=r),
+                 AT.bytes_moved_lane(pctrl, lits, BLOCK, 9, ts, nb),
+                 f"lane sum mode 9, {int(nb.sum())} batches, MAXB="
+                 f"{rws.shape[1] // 32} G32={pctrl.shape[1]} "
+                 f"RL={lit32.shape[1]}")
+    nb, ts, pctrl, lit8 = AT.pack_blocks_v10(pieces, lits, totals, BLOCK)
+    out[10] = row(10, (pctrl, lit8, ts),
+                  lambda pc, l, t: AT.lane_sum(pc, l, BLOCK, 10, ts=t),
+                  lambda pc, l, t: AT.lane_sum_reference(pc, l, BLOCK, 10,
+                                                         ts=t),
+                  AT.bytes_moved_lane(pctrl, lits, BLOCK, 10, ts, nb),
+                  f"lane sum mode 10, G32={pctrl.shape[1]} "
+                  f"RLP={lit8.shape[1]}")
+    from zxc_tpu_torch.ops import serial
+    layers = AT.v11_layers(serial.lane_ops_blocks(pieces, totals))
+    pctrl, lit8 = AT.pack_blocks_v11(pieces, lits, totals, BLOCK,
+                                     LAYERS=layers)
+    out[11] = row(11, (pctrl, lit8),
+                  lambda pc, l: AT.lane_sum(pc, l, BLOCK, 11, layers=layers),
+                  lambda pc, l: AT.lane_sum_reference(pc, l, BLOCK, 11,
+                                                      layers=layers),
+                  AT.bytes_moved_lane(pctrl, lits, BLOCK, 11),
+                  f"lane sum mode 11, LAYERS={layers} G32={pctrl.shape[1]} "
+                  f"RLP={lit8.shape[1]}")
+    return out
 
 
 def fmt_phases(ph: dict) -> str:
@@ -460,6 +560,8 @@ def main() -> None:
         f"PR={group[2].shape[1]} RL={group[3].shape[1]}",
         first_group=group_bytes_equal(data, totals64, BLOCK, DISPATCH))
     del args
+    for v, r in attic_rows(AT, pieces, lits, totals64, data).items():
+        rows[f"v{v}"] = r
 
     params = frame.level_params(ENC_LEVEL)
     grp = torch.from_numpy(np.frombuffer(data, np.uint8, DISPATCH * BLOCK)
@@ -551,6 +653,42 @@ def main() -> None:
                                              use_serial=True,
                                              variant=variant, _phases=ph),
                  head, reps=1)
+    # the attic's window-op and lane-op entries on one plan and one
+    # resolve of the 64 KiB archive, shared by the paths: their walls
+    # are pack and device; the shared section parse and resolve stand
+    # beside them as phases
+    t0 = time.perf_counter()
+    plan64 = BT.plan_frame(arc)
+    t_plan = time.perf_counter() - t0
+    pieces64, lits64 = BT.resolve_serial(plan64)
+    shared = {"plan (shared)": t_plan,
+              "resolve (shared)": time.perf_counter() - t0 - t_plan}
+    T64 = list(plan64.totals)
+
+    def attic_path(fn, n_blocks, **kw):
+        def run(ph):
+            ph.update(shared)
+            return b"".join(fn(pieces64[:n_blocks], lits64[:n_blocks],
+                               T64[:n_blocks], BLOCK, device="cuda",
+                               dispatch=DISPATCH, _phases=ph, **kw))
+        return run
+
+    entries = {4: (AT.decode_blocks_v4, dict(variant=4)),
+               9: (AT.decode_blocks_v9, {}), 10: (AT.decode_blocks_v10, {}),
+               11: (AT.decode_blocks_v11, {})}
+    for v, (fn, kw) in entries.items():
+        kern = "window_merge" if v < 8 else "lane_sum"
+        rows[f"v{v}"]["launches"] = run_path(
+            f"attic v{v} {kern} (64 KiB blocks)", kern, n_groups,
+            attic_path(fn, len(T64), **kw), data)
+    check(sum(T64[:HEAD_BLOCKS]) == len(head), "the first 64 blocks are "
+          "not the first 4 MiB")
+    for v in (5, 6, 7):
+        rows[f"v{v}"]["launches"] = run_path(
+            f"attic v{v} window_merge (first 4 MiB)", "window_merge",
+            HEAD_BLOCKS // DISPATCH,
+            attic_path(AT.decode_blocks_v4, HEAD_BLOCKS, variant=v), head,
+            reps=1)
     counts, arc_d = run_compress(
         EK, n_groups,
         lambda ph: Z.ops.compress_device(data, level=ENC_LEVEL,
@@ -631,8 +769,9 @@ def main() -> None:
 
     kernels = ([rows[v] for v in (19, 26, 27, 13)]
                + [enc_rows[k] for k in ("lcp", "parse_walk")]
-               + [rows["attic"]])
-    check(len(kernels) == 7 and all(r["launches"] for r in kernels),
+               + [rows[k] for k in ("attic", "v4", "v5", "v6", "v7", "v9",
+                                    "v10", "v11")])
+    check(len(kernels) == 14 and all(r["launches"] for r in kernels),
           f"kernel rows without launches: {kernels}")
     print(json.dumps({"kernels": kernels}))
     print(smi)

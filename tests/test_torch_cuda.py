@@ -1,6 +1,7 @@
 """Card tests of the PyTorch port: each CUDA kernel (v19, v26, v27, v13,
-lcp, parse_walk, the attic's piece-serial kernel) against its plain
-PyTorch version on the card, on valid and on garbage control, and the
+lcp, parse_walk, the attic's piece-serial kernel, window merge and lane
+sum) against its plain PyTorch version on the card, on valid and on
+garbage control, misaligned or non-contiguous operands refused, and the
 cold, hint, serial and attic decodes, the default expansion route (no
 hand-written kernel), ``Seekable.decompress_range_device`` and the device
 encode against the CPU path. They need an NVIDIA card with
@@ -325,11 +326,176 @@ def test_attic_route_on_card(card, variant):
     assert A.piece_serial.launches - before == -(-plan.n_blocks // 4)
 
 
+def window_plan(seed: int, B: int, block: int, mode: int,
+                garbage: bool = False, RL: int = 40):
+    """(wstart, ops, lit8) of the window merge made with numpy. Valid
+    plans are the JAX bodies' contract: wstart from 0, never decreasing,
+    inside the ops; up to 40 ops a window (v6/v7 windows need not start on
+    a multiple of their unroll), dst ranges that overlap, run past the
+    window or are empty, fills with f3 past 256, nets of 0, W - 1, W,
+    negative and huge, and srow negative or past the lit rows. The ops
+    array has the 24 rows past the last op that the JAX bodies' staging
+    reads. ``garbage`` draws wstart and every op field from any int32
+    (wstart kept near the ops)."""
+    rng = np.random.default_rng(seed)
+    NW = block // 1024
+    op_rows = max(48, -(-40 * NW * 4 // 128) + 24)
+    cap = op_rows * 32
+    W = 2048 if mode == 4 else 1024
+    ops = np.zeros((B, op_rows, 128), np.int32)
+    f = ops.reshape(B, cap, 4)
+    if garbage:
+        wstart = rng.integers(-40, cap + 60, (B, NW + 1)).astype(np.int32)
+        f[:] = rng.integers(-2**31, 2**31, f.shape)
+        d = rng.integers(0, 1200, (B, len(f[0, ::3])))
+        f[:, ::3, 2] = d | ((d + 300) << 16)          # some live ranges
+    else:
+        wstart = np.zeros((B, NW + 1), np.int32)
+        wstart[:, 1:] = np.cumsum(rng.integers(0, 41, (B, NW)), axis=1)
+        n = cap
+        f[..., 0] = rng.choice([0, 8, 16, RL - 16, -1, -37, RL - 3, RL + 50,
+                                13], (B, n))
+        f[..., 1] = rng.choice([0, W - 1, W, -1, -W - 5, 3 * W + 7, 2**30,
+                                -2**30, 517], (B, n))
+        dlo = rng.integers(0, 1024, (B, n))
+        dhi = np.minimum(dlo + rng.choice([0, 1, 5, 200, 1024, 70000],
+                                          (B, n)), 65535)
+        f[..., 2] = dlo | (dhi << 16)
+        f[..., 3] = np.where(rng.random((B, n)) < 0.3,
+                             rng.choice([1, 2, 256, 300, -4], (B, n)), 0)
+    lit8 = rng.integers(0, 256, (B, RL, 128), dtype=np.uint8)
+    return wstart, ops, lit8
+
+
+def lane_plan(seed: int, B: int, block: int, mode: int,
+              garbage: bool = False, RL: int = 48):
+    """(ts, rows, pctrl, lit, layers) of the lane sum made with numpy
+    (``ts``/``rows`` None where the mode takes none). Valid plans keep
+    every batch inside the control (and, for v9, the rows), with tiles of
+    0-14 batches (counts that are not multiples of 4 included), lane
+    ranges that overlap so sums pass 255, empty ops, rolls up to the
+    field's width, and rows negative or past the lit rows (v9) or at or
+    past them (v10/v11). v9's lit is any int32. ``garbage`` draws ts,
+    rows, pctrl and layers from any int32 (ts and layers kept small
+    enough for a test)."""
+    rng = np.random.default_rng(seed)
+    NT = block // 4096
+    layers = 6 if mode == 11 else 0
+    if mode == 11:
+        NB = NT * layers
+    else:
+        ts = np.zeros((B, NT + 1), np.int64)
+        ts[:, 1:] = np.cumsum(rng.integers(0, 15, (B, NT)), axis=1)
+        NB = int(ts.max())
+    MAXB = max(-(-NB // 8) * 8, 8)
+    G32 = 32 * -(-MAXB // 128)
+    shape = (B, G32, 128)
+    rl = rng.integers(0, 256 if mode == 9 else 128, shape)
+    s = rng.integers(0, 128, shape)
+    e1 = np.clip(s + rng.integers(-3, 90, shape), 0, 127)
+    if mode == 9:
+        w = rl | (s << 8) | (e1 << 16)
+        rows = rng.integers(-RL - 10, RL + 10, (B, MAXB * 32))
+        lit = rng.integers(-2**31, 2**31, (B, RL, 128)).astype(np.int32)
+    else:
+        w = rl | (s << 7) | (e1 << 14) | (rng.integers(0, RL + 8, shape)
+                                          << 21)
+        rows = None
+        lit = rng.integers(0, 256, (B, RL, 128)).astype(np.uint8)
+    if garbage:
+        w = rng.integers(0, 2**32, shape)
+        if mode == 9:
+            rows = rng.integers(-2**31, 2**31, (B, MAXB * 32))
+        if mode == 11:
+            layers = int(rng.integers(0, 300))
+        else:
+            ts = rng.integers(-300, MAXB + 300, (B, NT + 1))
+    ts = None if mode == 11 else ts.astype(np.int32)
+    rows = None if rows is None else rows.astype(np.int32)
+    return ts, rows, w.astype(np.uint32).view(np.int32), lit, layers
+
+
+@pytest.mark.parametrize("garbage", [False, True])
+@pytest.mark.parametrize("mode", [4, 5, 6, 7])
+def test_window_merge_equals_plain_version_on_card(card, mode, garbage):
+    from zxc_tpu_torch.ops import attic as A
+    for seed, (B, block) in enumerate(((1, 1024), (3, 4096), (16, 65536))):
+        t = [torch.from_numpy(a).to(card)
+             for a in window_plan(seed, B, block, mode, garbage)]
+        before = A.window_merge.launches
+        out = A.window_merge(*t, block=block, mode=mode)
+        torch.cuda.synchronize()
+        assert A.window_merge.launches == before + 1
+        assert torch.equal(out, A.window_merge_reference(*t, block=block,
+                                                         mode=mode))
+
+
+@pytest.mark.parametrize("garbage", [False, True])
+@pytest.mark.parametrize("mode", [9, 10, 11])
+def test_lane_sum_equals_plain_version_on_card(card, mode, garbage):
+    from zxc_tpu_torch.ops import attic as A
+    for seed, (B, block) in enumerate(((1, 4096), (3, 8192), (16, 65536))):
+        ts, rows, pctrl, lit, layers = (
+            torch.from_numpy(a).to(card) if isinstance(a, np.ndarray) else a
+            for a in lane_plan(seed, B, block, mode, garbage))
+        before = A.lane_sum.launches
+        out = A.lane_sum(pctrl, lit, block, mode, ts=ts, rows=rows,
+                         layers=layers)
+        torch.cuda.synchronize()
+        assert A.lane_sum.launches == before + 1
+        assert torch.equal(out, A.lane_sum_reference(
+            pctrl, lit, block, mode, ts=ts, rows=rows, layers=layers))
+
+
+def test_attic_kernels_refuse_bad_operands_on_card(card):
+    from zxc_tpu_torch.ops import attic as A
+    ws, ops, lit8 = (torch.from_numpy(a).to(card)
+                     for a in window_plan(0, 2, 4096, 5))
+    odd = torch.empty(ops.numel() + 1, dtype=torch.int32, device=card)
+    with pytest.raises(ValueError, match="contiguous"):
+        A.window_merge(ws, ops.transpose(1, 2).contiguous().transpose(1, 2),
+                       lit8, block=4096, mode=5)
+    with pytest.raises(ValueError, match="aligned"):
+        A.window_merge(ws, odd[1:].view(ops.shape), lit8, block=4096, mode=5)
+    ts, rows, pctrl, lit, _ = (torch.from_numpy(a).to(card)
+                               if isinstance(a, np.ndarray) else a
+                               for a in lane_plan(0, 2, 8192, 9))
+    with pytest.raises(ValueError, match="contiguous"):
+        A.lane_sum(pctrl, lit.transpose(1, 2).contiguous().transpose(1, 2),
+                   8192, 9, ts=ts, rows=rows)
+    with pytest.raises(ValueError, match="aligned"):
+        A.lane_sum(pctrl, lit, 8192, 9, ts=ts,
+                   rows=torch.empty(rows.numel() + 1, dtype=torch.int32,
+                                    device=card)[1:].view(rows.shape))
+
+
+@pytest.mark.parametrize("variant", [4, 5, 6, 7, 9, 10, 11])
+def test_attic_window_and_lane_paths_on_card(card, variant):
+    from zxc_tpu_torch.ops import attic as A, batch as BT
+    data = _card_corpus(10)
+    arc = Z.compress(data, Z.EncodeOpts(level=3, block_size=16384))
+    plan = BT.plan_frame(arc)
+    pieces, lits = BT.resolve_serial(plan)
+    if variant < 8:
+        kern = A.window_merge
+        fn = lambda **kw: A.decode_blocks_v4(pieces, lits, plan.totals,
+                                             16384, variant=variant, **kw)
+    else:
+        kern = A.lane_sum
+        entry = {9: A.decode_blocks_v9, 10: A.decode_blocks_v10,
+                 11: A.decode_blocks_v11}[variant]
+        fn = lambda **kw: entry(pieces, lits, plan.totals, 16384, **kw)
+    before = kern.launches
+    assert b"".join(fn(dispatch=4)) == data
+    assert kern.launches - before == -(-plan.n_blocks // 4)
+    assert fn(dispatch=4, device="cpu") == fn(dispatch=4, device=card)
+
+
 def _all_launches():
     from zxc_tpu_torch.ops import attic as A, encode_kernels as EK
     return (sum(k.launches for k in CE.KERNELS.values())
             + sum(k.launches for k in EK.KERNELS.values())
-            + A.piece_serial.launches)
+            + sum(k.launches for k in A.KERNELS.values()))
 
 
 @pytest.mark.parametrize("block", [4096, 65536])

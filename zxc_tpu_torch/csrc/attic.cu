@@ -1,5 +1,8 @@
-// Piece-serial copy engine for Hopper (sm_90a): the attic route of
-// ops.decompress(use_serial=True, variant=1|2|3).
+// The attic's decode kernels for Hopper (sm_90a): the piece-serial copy
+// engine (v1-v3), the window merge (v4-v7) and the lane sum (v9-v11).
+//
+// == Piece-serial copy engine: ops.decompress(use_serial=True,
+// variant=1|2|3).
 //
 // Replaces the Pallas kernel of the JAX package's attic:
 //   tools/kernel_attic.py serial_kernel_wrapped (pallas_call at :272), with
@@ -35,6 +38,65 @@
 // 32-bit word. Pieces are disjoint, so every byte is written exactly once
 // and no atomics are needed. Whether the searches or the lit loads set the
 // time is measured, not assumed (PERF.md).
+//
+// == Window merge: attic.decode_blocks_v4 (variants 4-7).
+//
+// Replaces tools/kernel_attic.py v4_kernel (pallas_call at :483) with the
+// bodies _kernel_v4 (:369), _kernel_v5 (:507), _kernel_v6 (:564) and
+// _kernel_v7 (:615), which differ only in how they read their control.
+// Op t of block b is four int32 words [srow, net, dlo | dhi << 16, f3]
+// (zxch_window_ops / zxch_window_ops2). Window wi (1024 output bytes)
+// starts from 0 and applies its ops in order, the last one winning; for
+// each position pos in [dlo, dhi):
+//   acc[pos] = f3 - 1                            if f3 > 0
+//   acc[pos] = lit[r * 128 + mod(pos + net, W)]  otherwise
+// and the output byte is the low byte of acc. W = 2048 (v4, a 16-row
+// window of lit) or 1024 (v5-v7, 8 rows); r is srow as the JAX dynamic
+// slice takes it: a negative start counts from the end of the block's rl
+// lit rows, then the start is clamped to [0, rl - W / 128]. v4 and v5 walk
+// ops [ws[wi], ws[wi+1]), v6 and v7 [U * floor(ws[wi] / U), U *
+// floor(ws[wi+1] / U)) with U = 8 or 16. An op outside [0, cap) adds
+// nothing.
+//
+// What bounds it: bytes are few (16 bytes an op, each literal byte once,
+// the output once: about 5 MB a group of 16 blocks of 64 KiB, 1.5 us at
+// 3.35 TB/s), and every thread walks every op of its window. Design: one
+// CTA per (block, window), 256 threads of 4 output bytes; the window's
+// ops are staged 256 at a time into shared memory (one 16-byte load a
+// thread) and every thread reads each op as a broadcast, skips the ops
+// that miss its 4 bytes and keeps the last value per byte in registers;
+// one 32-bit store a thread at the end.
+//
+// == Lane sum: attic.decode_blocks_v9 / v10 / v11.
+//
+// Replaces tools/kernel_attic.py v9_kernel (pallas_call at :831), v10_kernel
+// (:989) and v11_kernel (:1102). For 4096-byte tile t of block b (32 rows of
+// 128 lanes), sublane k and lane l:
+//   out[b, 32t + k, l] = low8( sum over bat of [s <= l <= e1]
+//                                              * lit[row][(l + rl) & 127] )
+// with the control word c = pctrl[b, 32 * (bat >> 7) + k, bat & 127]:
+//   v9:      rl = c & 255, s = c >> 8 & 255, e1 = c >> 16 & 255,
+//            row = rows[b, 32 * bat + k], normalised and clamped into the
+//            lit rows as the dynamic slice does (lit is int32: its low byte
+//            counts, which is all a sum mod 256 needs)
+//   v10/v11: rl = c & 127, s = c >> 7 & 127, e1 = c >> 14 & 127,
+//            row = (uint32)c >> 21; a row at or past the lit rows adds 0
+//            (the TPU bodies gather rows by a one-hot bf16 matmul on the
+//            MXU, which gives 0 there; the card reads the row)
+// over batches [ts[b,t], ts[b,t] + 4 * floor((ts[b,t+1] - ts[b,t]) / 4))
+// (v9, v10) or [t * layers, t * layers + 4 * floor(layers / 4)) (v11). The
+// sum is int32 and wraps; a batch outside the control (v9: or the rows)
+// adds nothing.
+//
+// What bounds it: bytes are few (4 bytes of control an op slot, each
+// literal byte once, the output once: about 2.5 MB a group), and the work
+// is one masked byte gather per (op, lane). Design: one CTA per (block,
+// tile), 1024 threads: warp k owns sublane k, each thread 4 lanes; the
+// tile's batches are staged 32 at a time (each thread loads one control
+// word, and for v9 one row, coalesced along the batch index) into shared
+// memory, then every warp walks them with its control word a broadcast
+// (no divergence inside a warp), adds its masked bytes in registers and
+// stores one 32-bit word a thread.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -43,6 +105,11 @@ namespace {
 
 constexpr int kWindow = 1024;
 constexpr int kThreads = kWindow / 4;
+constexpr int kStageOps = kThreads;          // window ops staged a round
+constexpr int kTile = 4096;
+constexpr int kTileRows = kTile / 128;       // 32 sublanes, a warp each
+constexpr int kLaneThreads = kTileRows * 32;
+constexpr int kLaneStage = 32;               // batches staged a round
 
 __device__ __forceinline__ int wrap_add(int a, int b) {
   return (int)((unsigned)a + (unsigned)b);
@@ -108,6 +175,133 @@ __global__ void __launch_bounds__(kThreads) piece_serial_kernel(
     *reinterpret_cast<uint32_t*>(out + (long long)b * block + p) = word;
 }
 
+// floor(v / u) for u > 0
+__device__ __forceinline__ long long floor_div(long long v, long long u) {
+  const long long q = v / u;
+  return (v % u != 0 && v < 0) ? q - 1 : q;
+}
+
+__device__ __forceinline__ long long clamp_ll(long long v, long long lo,
+                                              long long hi) {
+  return v < lo ? lo : (v > hi ? hi : v);
+}
+
+__device__ __forceinline__ uint32_t pack_low_bytes(uint32_t a, uint32_t b,
+                                                   uint32_t c, uint32_t d) {
+  return (a & 255u) | (b & 255u) << 8 | (c & 255u) << 16 | (d & 255u) << 24;
+}
+
+__global__ void __launch_bounds__(kThreads) window_merge_kernel(
+    const int32_t* __restrict__ wstart, const int4* __restrict__ ops,
+    int cap, const uint8_t* __restrict__ lit, int rl,
+    uint8_t* __restrict__ out, int block, int wrows, int unroll) {
+  __shared__ int4 stage[kStageOps];
+  const int nw = block / kWindow;
+  const int b = blockIdx.y, wi = blockIdx.x;
+  const int32_t* ws = wstart + (long long)b * (nw + 1);
+  const long long t0 =
+      clamp_ll(floor_div(ws[wi], unroll) * unroll, 0, cap);
+  const long long t1 =
+      clamp_ll(floor_div(ws[wi + 1], unroll) * unroll, 0, cap);
+  const int4* ob = ops + (long long)b * cap;
+  const uint8_t* lb = lit + (long long)b * rl * 128;
+  const unsigned wmask = (unsigned)(wrows * 128 - 1);
+  const int p = 4 * threadIdx.x;   // the thread's first byte in the window
+  uint32_t acc[4] = {0u, 0u, 0u, 0u};
+  for (long long c0 = t0; c0 < t1; c0 += kStageOps) {
+    const int n = (int)min((long long)kStageOps, t1 - c0);
+    __syncthreads();   // every thread is done with the previous round
+    if ((int)threadIdx.x < n) stage[threadIdx.x] = ob[c0 + threadIdx.x];
+    __syncthreads();
+    for (int i = 0; i < n; ++i) {
+      const int4 op = stage[i];
+      const int dlo = op.z & 0xFFFF;
+      const int dhi = (int)((unsigned)op.z >> 16);
+      if (dhi <= p || dlo >= p + 4) continue;   // misses the thread's bytes
+      int r = op.x < 0 ? op.x + rl : op.x;
+      r = min(max(r, 0), rl - wrows);
+      const uint8_t* src = lb + (long long)r * 128;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int pos = p + q;
+        if (pos < dlo || pos >= dhi) continue;
+        acc[q] = op.w > 0 ? (uint32_t)(op.w - 1)
+                          : src[((unsigned)pos + (unsigned)op.y) & wmask];
+      }
+    }
+  }
+  *reinterpret_cast<uint32_t*>(out + (long long)b * block +
+                               (long long)wi * kWindow + p) =
+      pack_low_bytes(acc[0], acc[1], acc[2], acc[3]);
+}
+
+__global__ void __launch_bounds__(kLaneThreads) lane_sum_kernel(
+    const int32_t* __restrict__ ts, const int32_t* __restrict__ rows,
+    int rows_len, const int32_t* __restrict__ pctrl, int g32,
+    const uint8_t* __restrict__ lit, int lit_bytes, int rl,
+    uint8_t* __restrict__ out, int block, int mode, int layers) {
+  __shared__ int ctrl[kTileRows][kLaneStage];
+  __shared__ int srow[kTileRows][kLaneStage];
+  const int nt = block / kTile;
+  const int b = blockIdx.y, t = blockIdx.x;
+  const int k = threadIdx.x >> 5, lg = threadIdx.x & 31;
+  long long b0, n;
+  if (mode == 11) {
+    b0 = (long long)t * layers;
+    n = 4LL * (layers / 4);
+  } else {
+    const int32_t* tb = ts + (long long)b * (nt + 1);
+    b0 = tb[t];
+    n = 4 * floor_div((long long)tb[t + 1] - b0, 4);
+  }
+  long long cap = (long long)(g32 / kTileRows) * 128;
+  if (mode == 9) cap = min(cap, (long long)(rows_len / kTileRows));
+  const long long lo = clamp_ll(b0, 0, cap);
+  const long long hi = clamp_ll(b0 + n, lo, cap);
+  const int32_t* pb = pctrl + (long long)b * g32 * 128;
+  const int32_t* rb = rows + (long long)b * rows_len;
+  const uint8_t* lb = lit + (long long)b * rl * 128 * lit_bytes;
+  const int l0 = 4 * lg;
+  uint32_t acc[4] = {0u, 0u, 0u, 0u};
+  for (long long c0 = lo; c0 < hi; c0 += kLaneStage) {
+    const int n_st = (int)min((long long)kLaneStage, hi - c0);
+    __syncthreads();   // every warp is done with the previous round
+    if (lg < n_st) {
+      const long long bat = c0 + lg;
+      ctrl[k][lg] = pb[(kTileRows * (bat >> 7) + k) * 128 + (bat & 127)];
+      if (mode == 9) srow[k][lg] = rb[kTileRows * bat + k];
+    }
+    __syncthreads();
+    for (int i = 0; i < n_st; ++i) {
+      const int c = ctrl[k][i];
+      int rot, s, e1, row;
+      if (mode == 9) {
+        rot = c & 255;
+        s = (c >> 8) & 255;
+        e1 = (c >> 16) & 255;
+        row = srow[k][i];
+        row = min(max(row < 0 ? row + rl : row, 0), rl - 1);
+      } else {
+        rot = c & 127;
+        s = (c >> 7) & 127;
+        e1 = (c >> 14) & 127;
+        row = (int)((unsigned)c >> 21);
+        if (row >= rl) continue;
+      }
+      if (s > e1 || e1 < l0 || s > l0 + 3) continue;
+      const uint8_t* src = lb + (long long)row * 128 * lit_bytes;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int l = l0 + q;
+        if (l >= s && l <= e1) acc[q] += src[((l + rot) & 127) * lit_bytes];
+      }
+    }
+  }
+  *reinterpret_cast<uint32_t*>(
+      out + (long long)b * block + ((long long)t * kTileRows + k) * 128 +
+      l0) = pack_low_bytes(acc[0], acc[1], acc[2], acc[3]);
+}
+
 }  // namespace
 
 extern "C" {
@@ -127,6 +321,54 @@ int zxc_piece_serial(const int32_t* npieces, const int32_t* totals,
   piece_serial_kernel<<<dim3(block / kWindow, B), kThreads, 0,
                         (cudaStream_t)stream>>>(
       npieces, totals, pcs, cap, lit, lit_row, out, block, fill_from_s);
+  return (int)cudaGetLastError();
+}
+
+// Returns a cudaError_t (0 = launched) and launches on `stream`. Checked by
+// the Python wrapper: wstart (B, block / 1024 + 1) int32; ops (B, cap / 32,
+// 128) int32 with a 16-byte aligned base; lit (B, rl, 128) uint8 with rl at
+// least the mode's window rows; out (B, block) uint8; mode 4, 5, 6 or 7.
+int zxc_window_merge(const int32_t* wstart, const int32_t* ops, int cap,
+                     const uint8_t* lit, int rl, uint8_t* out, int B,
+                     int block, int mode, void* stream) {
+  int wrows, unroll;
+  switch (mode) {
+    case 4: wrows = 16; unroll = 1; break;
+    case 5: wrows = 8; unroll = 1; break;
+    case 6: wrows = 8; unroll = 8; break;
+    case 7: wrows = 8; unroll = 16; break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  if (B == 0 || block == 0) return 0;
+  if (B < 0 || B > 65535 || block < 0 || block % kWindow || cap < 0 ||
+      rl < wrows)
+    return (int)cudaErrorInvalidValue;
+  window_merge_kernel<<<dim3(block / kWindow, B), kThreads, 0,
+                        (cudaStream_t)stream>>>(
+      wstart, reinterpret_cast<const int4*>(ops), cap, lit, rl, out, block,
+      wrows, unroll);
+  return (int)cudaGetLastError();
+}
+
+// Returns a cudaError_t (0 = launched) and launches on `stream`. Checked by
+// the Python wrapper: ts (B, block / 4096 + 1) int32 (modes 9, 10; else
+// unused); rows (B, rows_len) int32 (mode 9; else unused); pctrl (B, g32,
+// 128) int32 with g32 % 32 == 0; lit (B, rl, 128), int32 for mode 9 and
+// uint8 otherwise; out (B, block) uint8 with block % 4096 == 0; layers >= 0
+// (mode 11).
+int zxc_lane_sum(const int32_t* ts, const int32_t* rows, int rows_len,
+                 const int32_t* pctrl, int g32, const uint8_t* lit, int rl,
+                 uint8_t* out, int B, int block, int mode, int layers,
+                 void* stream) {
+  if (mode != 9 && mode != 10 && mode != 11) return (int)cudaErrorInvalidValue;
+  if (B == 0 || block == 0) return 0;
+  if (B < 0 || B > 65535 || block < 0 || block % kTile || g32 < 0 ||
+      g32 % kTileRows || rl < 1 || rows_len < 0 || layers < 0)
+    return (int)cudaErrorInvalidValue;
+  lane_sum_kernel<<<dim3(block / kTile, B), kLaneThreads, 0,
+                    (cudaStream_t)stream>>>(
+      ts, rows, rows_len, pctrl, g32, lit, mode == 9 ? 4 : 1, rl, out, block,
+      mode, layers);
   return (int)cudaGetLastError();
 }
 

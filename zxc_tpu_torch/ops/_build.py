@@ -78,6 +78,11 @@ def _bind_attic(L, vp, ci) -> None:
     L.zxc_piece_serial.restype = ci
     L.zxc_piece_serial.argtypes = [vp] * 3 + [ci, vp, ctypes.c_longlong, vp,
                                               ci, ci, ci, vp]
+    L.zxc_window_merge.restype = ci
+    L.zxc_window_merge.argtypes = [vp, vp, ci, vp, ci, vp, ci, ci, ci, vp]
+    L.zxc_lane_sum.restype = ci
+    L.zxc_lane_sum.argtypes = [vp, vp, ci, vp, ci, vp, ci, vp, ci, ci, ci,
+                               ci, vp]
 
 
 def kernels() -> ctypes.CDLL:
@@ -92,6 +97,6 @@ def encode_kernels() -> ctypes.CDLL:
 
 
 def attic_kernels() -> ctypes.CDLL:
-    """The attic route's piece-serial kernel library, built on first
-    use."""
+    """The attic's kernel library (piece-serial, window merge, lane sum),
+    built on first use."""
     return _library("attic", _bind_attic)

@@ -23,7 +23,9 @@ of three routes, as the JAX package routes them:
 The pieces and chase routes are PyTorch tensor ops (the JAX package's
 XLA code) and launch no hand-written kernel. Device entropy decode
 (``device_entropy=True``, ROADMAP queue 1 item 5) and the other attic
-variants (queue 1 item 1) raise ``NotImplementedError``.
+variants (queue 1 item 1) raise ``NotImplementedError``: as in the JAX
+package, ``decompress`` routes none of them; variants 4-7 and 9-11 have
+their own entries (``attic.decode_blocks_v4/v9/v10/v11``).
 """
 from __future__ import annotations
 
@@ -47,7 +49,7 @@ from ..codec import block_decode, huffman
 from ..codec.frame import DecodeOpts
 from .. import runtime
 from . import attic, expand, serial
-from .device_pipeline import _device
+from .device_pipeline import _add, _device
 
 # Blocks expanded per device batch (the JAX package's DEFAULT_BATCH).
 DEFAULT_BATCH = 64
@@ -282,13 +284,6 @@ def _pad_piece_batch(plan: FramePlan, idx: range, P: int, L: int,
     return po, pc, ps, pk, lit, n_pieces, totals
 
 
-def _add(ph: dict | None, key: str, t0: float) -> float:
-    t = time.perf_counter()
-    if ph is not None:
-        ph[key] = ph.get(key, 0.0) + t - t0
-    return t
-
-
 def decode_plan_pieces_device(plan: FramePlan, batch: int = DEFAULT_BATCH,
                               device=None, *, _phases: dict | None = None
                               ) -> bytes:
@@ -357,22 +352,20 @@ def decode_plan_device(plan: FramePlan, batch: int = DEFAULT_BATCH,
 
 def _decode_serial(plan: FramePlan, pieces, lits, variant: int,
                    dispatch: int, dev, ph: dict) -> bytes:
-    """The serial route on resolved pieces: pack every dispatch group,
-    then one kernel launch a group (v19/v13, or the attic kernel)."""
-    t0 = time.perf_counter()
+    """The serial route on resolved pieces, one kernel launch a dispatch
+    group: v19/v13 (every group packed first, to one padded shape) or the
+    attic kernel (each group packed and run in turn)."""
     if variant in attic.VARIANTS:
-        groups = attic.pack_groups(pieces, lits, plan.totals,
-                                   plan.block_size, dispatch)
-        t0 = _add(ph, "pack", t0)
-        res = attic.decode_groups(groups, plan.totals, plan.block_size,
-                                  variant, dev)
-    else:
-        v13 = variant == 13 or plan.block_size < 16384
-        groups = serial.pack_groups(pieces, lits, plan.totals,
-                                    plan.block_size, v13, dispatch)
-        t0 = _add(ph, "pack", t0)
-        res = serial.decode_groups(groups, plan.totals, plan.block_size,
-                                   v13, dev)
+        return b"".join(attic.decode_blocks(
+            pieces, lits, plan.totals, plan.block_size, dev, variant,
+            dispatch, _phases=ph))
+    t0 = time.perf_counter()
+    v13 = variant == 13 or plan.block_size < 16384
+    groups = serial.pack_groups(pieces, lits, plan.totals, plan.block_size,
+                                v13, dispatch)
+    t0 = _add(ph, "pack", t0)
+    res = serial.decode_groups(groups, plan.totals, plan.block_size, v13,
+                               dev)
     _add(ph, "device", t0)
     return b"".join(res)
 
@@ -400,8 +393,9 @@ def decompress(archive: bytes, opts: DecodeOpts | None = None,
             "(ops/pivco_device.py), ROADMAP queue 1 item 5")
     if use_serial and variant not in (13, 19, *attic.VARIANTS):
         raise NotImplementedError(
-            f"serial variant {variant} is an attic kernel not ported yet "
-            "(tools/kernel_attic.py), ROADMAP queue 1 item 1")
+            f"serial variant {variant} has no ops.decompress route, as in "
+            f"the JAX package (tools/kernel_attic.py): "
+            f"{attic.OTHER_VARIANTS}")
     dev = _device(device, "ops.decompress")
     ph: dict = {}
     t_start = t0 = time.perf_counter()

@@ -534,6 +534,15 @@ def _device(device, name: str = "decompress_e2e") -> torch.device:
     return dev
 
 
+def _add(ph: dict | None, key: str, t0: float) -> float:
+    """Adds the seconds since ``t0`` to ``ph[key]`` (when ``ph`` is a
+    dict) and returns the clock."""
+    t = time.perf_counter()
+    if ph is not None:
+        ph[key] = ph.get(key, 0.0) + t - t0
+    return t
+
+
 def decompress_e2e(archive: bytes, opts: DecodeOpts | None = None, *,
                    device=None, dispatch: int = 16, K: int = 2,
                    workers: int | None = None, variant: int | None = None,

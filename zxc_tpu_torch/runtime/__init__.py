@@ -8,8 +8,8 @@ the fused per-block prep of the copy engine's control
 form (``*_prep_block_plan``), the hint replay of the literal window
 (``zxch_v19_lit8_load[_batch]``), the section parsers of ``plan_frame``
 (RLE literals, varint extras, PivCo entropy), the piece resolver and
-lane-op splitter, the host block decoder (``Seekable``), the host frame
-decoder (the hint body is itself a
+the lane-op and window-op splitters, the host block decoder
+(``Seekable``), the host frame decoder (the hint body is itself a
 frame), rapidhash64, the native frame encoder, and the section emitters
 of the device encoder's host half (PivCo encode, RLE literals and
 package-merge code lengths).
@@ -66,6 +66,9 @@ def _bind(L: ctypes.CDLL) -> None:
                                          + [vp])
     L.zxch_lane_ops.restype = i64
     L.zxch_lane_ops.argtypes = [vp] * 4 + [u64, i64] + [vp] * 5 + [u64]
+    for fn in (L.zxch_window_ops, L.zxch_window_ops2):
+        fn.restype = i64
+        fn.argtypes = [vp] * 4 + [u64, i64, vp, vp, u64]
     L.zxch_compress_frame.restype = i64
     L.zxch_compress_frame.argtypes = [vp, u64, ci, ci, ci, ci, ci, ci, ci,
                                       ci, u64, ci, ci, ci, vp, u64, vp, u32,
@@ -240,6 +243,27 @@ def lane_ops(po, pc, ps, pk, total: int):
         return None
     nb = int(nb)
     return rows[:nb], roll[:nb], s[:nb], e[:nb], tile_start
+
+
+def window_ops(po, pc, ps, pk, total: int, split_src: bool = False):
+    """Split device_pure pieces into 1024-byte-window merge ops, four
+    int32 fields each (source row, net roll, ``dlo | dhi << 16``, fill
+    byte + 1 or 0), also cut at source 1024-byte granules when
+    ``split_src`` (``zxch_window_ops2``). Returns (ops int32 flat, wstart
+    int32 (n_windows + 1,)), or None when the op budget is exceeded."""
+    L = lib()
+    n = len(po)
+    n_windows = (total + 1023) // 1024
+    max_ops = (3 if split_src else 2) * n + n_windows + 64
+    ops = np.empty(max_ops * 4, np.int32)
+    wstart = np.empty(n_windows + 1, np.int32)
+    p32 = [np.ascontiguousarray(a, np.int32) for a in (po, pc, ps, pk)]
+    fn = L.zxch_window_ops2 if split_src else L.zxch_window_ops
+    r = fn(*(_ptr(a) for a in p32), n, total, _ptr(ops), _ptr(wstart),
+           max_ops)
+    if r < 0:
+        return None
+    return ops[:r * 4], wstart
 
 
 def compress_frame(data: np.ndarray, level: int, max_probes: int,
