@@ -6,8 +6,9 @@
 Phases, in order; any failure exits non-zero before the result line:
 
 1. the card's name and power limit (nvidia-smi); build the native host
-   runtime (g++), the copy-engine kernels v19/v26/v27/v13
-   (``csrc/copy_engine.cu``, nvcc, sm_90a), the encoder's kernels
+   runtime (g++), the copy-engine kernels v19/v26/v27/v13 and the attic's
+   quad-tile modes (``csrc/copy_engine.cu``, nvcc, sm_90a), the encoder's
+   kernels
    lcp/parse_walk (``csrc/encode.cu``) and the attic's piece-serial,
    window-merge and lane-sum kernels (``csrc/attic.cu``) in parallel;
 2. the pinned 32 MiB corpus (tools/gen_corpus.py, sha256 checked against
@@ -23,6 +24,8 @@ Phases, in order; any failure exits non-zero before the result line:
    64 KiB archive as ``ops.decompress(use_serial=True, variant=2)`` packs
    it; the window merge in modes v4-v7 and the lane sum in modes v9-v11:
    the same blocks as ``attic.decode_blocks_v4/v9/v10/v11`` pack them;
+   ``copy_engine.quad`` in modes v12, v14-v17, v20, v21, v23 and v24: the
+   same blocks as ``attic_quad.decode_blocks_vN`` packs them;
    lcp and parse_walk: the first 16 blocks of the corpus at level 3 as
    ``ops/encode.py`` feeds them): equal output, the kernel's median time
    over CUDA-event-timed launches, the plain version's time and the bytes
@@ -51,7 +54,10 @@ Phases, in order; any failure exits non-zero before the result line:
    lane-op entries ``attic.decode_blocks_v4`` (variant 4),
    ``decode_blocks_v9``, ``v10`` and ``v11`` over the 64 KiB archive and
    ``decode_blocks_v4`` with variants 5, 6 and 7 over its first 4 MiB,
-   on one shared section parse and resolve; the device encode
+   and the quad-tile entries ``attic_quad.decode_blocks_v15`` and ``v21``
+   over the 64 KiB archive and ``v12``, ``v14``, ``v16``, ``v17``, ``v20``,
+   ``v22``, ``v23`` and ``v24`` over its first 4 MiB (``quad`` once per
+   group), on one shared section parse and resolve; the device encode
    ``ops.compress_device`` of the corpus at level 3 with 64 KiB blocks
    (lcp and parse_walk once per group of 16 blocks). Fingerprint forms
    must equal the fingerprints computed on the host; the device encode's
@@ -103,6 +109,16 @@ ATTIC_V_REPLACES = {4: "tools/kernel_attic.py:483",
                     9: "tools/kernel_attic.py:831",
                     10: "tools/kernel_attic.py:989",
                     11: "tools/kernel_attic.py:1102"}
+# the attic's quad-tile kernels, ported as modes of copy_engine.quad
+QUAD_REPLACES = {12: "tools/kernel_attic.py:1224",
+                 14: "tools/kernel_attic.py:1340",
+                 15: "tools/kernel_attic.py:1567",
+                 16: "tools/kernel_attic.py:1702",
+                 17: "tools/kernel_attic.py:1834",
+                 20: "tools/kernel_attic.py:2464",
+                 21: "tools/kernel_attic.py:2617",
+                 23: "tools/kernel_attic.py:2356",
+                 24: "tools/kernel_attic.py:2771"}
 HEAD_BLOCKS = 64              # the first 4 MiB at 64 KiB blocks
 REPLACES = {19: "zxc_tpu/ops/pallas_decode.py:1306",
             26: "zxc_tpu/ops/pallas_decode.py:1038",
@@ -368,6 +384,27 @@ def attic_rows(AT, pieces, lits, totals, data) -> dict:
     return out
 
 
+def quad_rows(CE, Q, pieces, lits, totals, data) -> dict:
+    """``copy_engine.quad`` in each attic mode against its plain version on
+    one dispatch group, packed as ``attic_quad.decode_blocks_vN`` packs
+    it."""
+    out = {}
+    for v in QUAD_REPLACES:
+        mode, pack, _ = Q.VARIANTS[v]
+        host = pack(pieces, lits, totals, BLOCK)
+        args = CE.group_from_numpy(*host, device="cuda")
+        out[v] = kernel_row(
+            f"v{v}", SOURCE, QUAD_REPLACES[v],
+            lambda: CE.quad(*args, mode=mode),
+            lambda: CE.quad_reference(*args, mode=mode),
+            CE.bytes_moved(*host, mode=mode),
+            f"quad mode {mode}, {int(host[0][:, -1].sum())} quads, "
+            f"MAXQ={host[1].shape[1]} pctrl rows={host[2].shape[1]} "
+            f"RLP={host[4].shape[1]}",
+            first_group=group_bytes_equal(data, totals, BLOCK, len(pieces)))
+    return out
+
+
 def fmt_phases(ph: dict) -> str:
     return ", ".join(f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
                      for k, v in ph.items()) or "not recorded"
@@ -432,7 +469,7 @@ def main() -> None:
     from zxc_tpu_torch.codec import frame
     from zxc_tpu_torch.ops import device_pipeline as DP
     from zxc_tpu_torch.ops import batch as BT, hints as H, serial as S
-    from zxc_tpu_torch.ops import attic as AT
+    from zxc_tpu_torch.ops import attic as AT, attic_quad as AQ
     from zxc_tpu_torch.codec.seekable import Seekable
     from gen_corpus import gen_corpus
 
@@ -562,6 +599,8 @@ def main() -> None:
     del args
     for v, r in attic_rows(AT, pieces, lits, totals64, data).items():
         rows[f"v{v}"] = r
+    for v, r in quad_rows(CE, AQ, pieces, lits, totals64, data).items():
+        rows[f"v{v}"] = r
 
     params = frame.level_params(ENC_LEVEL)
     grp = torch.from_numpy(np.frombuffer(data, np.uint8, DISPATCH * BLOCK)
@@ -689,6 +728,17 @@ def main() -> None:
             HEAD_BLOCKS // DISPATCH,
             attic_path(AT.decode_blocks_v4, HEAD_BLOCKS, variant=v), head,
             reps=1)
+    # the quad-tile entries; v22 runs the v20 kernel on its own packing
+    for v in (15, 21):
+        rows[f"v{v}"]["launches"] = run_path(
+            f"attic_quad v{v} quad (64 KiB blocks)", "quad", n_groups,
+            attic_path(AQ.ENTRIES[v], len(T64)), data)
+    for v in (12, 14, 16, 17, 20, 22, 23, 24):
+        n = run_path(f"attic_quad v{v} quad (first 4 MiB)", "quad",
+                     HEAD_BLOCKS // DISPATCH,
+                     attic_path(AQ.ENTRIES[v], HEAD_BLOCKS), head, reps=1)
+        if v != 22:
+            rows[f"v{v}"]["launches"] = n
     counts, arc_d = run_compress(
         EK, n_groups,
         lambda ph: Z.ops.compress_device(data, level=ENC_LEVEL,
@@ -770,8 +820,9 @@ def main() -> None:
     kernels = ([rows[v] for v in (19, 26, 27, 13)]
                + [enc_rows[k] for k in ("lcp", "parse_walk")]
                + [rows[k] for k in ("attic", "v4", "v5", "v6", "v7", "v9",
-                                    "v10", "v11")])
-    check(len(kernels) == 14 and all(r["launches"] for r in kernels),
+                                    "v10", "v11")]
+               + [rows[f"v{v}"] for v in QUAD_REPLACES])
+    check(len(kernels) == 23 and all(r["launches"] for r in kernels),
           f"kernel rows without launches: {kernels}")
     print(json.dumps({"kernels": kernels}))
     print(smi)

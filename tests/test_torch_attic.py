@@ -219,7 +219,8 @@ def test_serial_wrapper_checks_inputs():
     with pytest.raises(ValueError, match="piece starts decrease"):
         A.pack_groups([(np.array([0, 9, 5], np.int32),) * 4],
                       [np.zeros(4, np.uint8)], [10], 1024)
-    with pytest.raises(NotImplementedError, match="queue 1 item 1"):
+    with pytest.raises(NotImplementedError,
+                       match="decode_blocks_v4.*attic_quad.decode_blocks_v12"):
         A.decode_blocks([], [], [], 1024, device="cpu", variant=4)
 
 

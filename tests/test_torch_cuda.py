@@ -1,10 +1,12 @@
 """Card tests of the PyTorch port: each CUDA kernel (v19, v26, v27, v13,
-lcp, parse_walk, the attic's piece-serial kernel, window merge and lane
-sum) against its plain PyTorch version on the card, on valid and on
-garbage control, misaligned or non-contiguous operands refused, and the
-cold, hint, serial and attic decodes, the default expansion route (no
-hand-written kernel), ``Seekable.decompress_range_device`` and the device
-encode against the CPU path. They need an NVIDIA card with
+the attic's quad-tile generations as ``quad`` in modes 12, 14-17, 20, 21,
+23 and 24, lcp, parse_walk, the attic's piece-serial kernel, window merge
+and lane sum) against its plain PyTorch version on the card, on valid and
+on garbage control, misaligned or non-contiguous operands refused, and
+the cold, hint, serial and attic decodes (``attic_quad``'s ten entries
+included), the default expansion route (no hand-written kernel),
+``Seekable.decompress_range_device`` and the device encode against the
+CPU path. They need an NVIDIA card with
 nvcc, are marked ``cuda`` and skip without one. On the card:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
@@ -489,6 +491,112 @@ def test_attic_window_and_lane_paths_on_card(card, variant):
     assert b"".join(fn(dispatch=4)) == data
     assert kern.launches - before == -(-plan.n_blocks // 4)
     assert fn(dispatch=4, device="cpu") == fn(dispatch=4, device=card)
+
+
+def quad_plan(seed: int, B: int, NT: int, MAXQ: int, RLP: int, mode: int,
+              garbage: bool = False, K: int = 2):
+    """(qs, qbase, pctrl, tq, lit8) of ``copy_engine.quad`` in ``mode``,
+    made with numpy: K planes of control for the K-plane modes (one for
+    12-17), qs of 2*NT+1 columns for v20, tq of the mode's type. Valid
+    plans stay inside the JAX bodies' defined range (quads in [0, MAXQ),
+    16-aligned windows (32 for v17) inside the RLP rows) and reach their
+    corners: tile quad counts that are odd and not multiples of 4, a range
+    whose end lies below its start (nothing runs; v14 runs the (q1 - q0)
+    mod 4 quads just below q1), slot rows at or past 128, target rows
+    outside the tile, plane-1 words covering lanes in v20's plane-0 range,
+    and sums past 255 (many slots a target row), all far below 2^24.
+    ``garbage`` draws qs, qbase, rows and target rows from anywhere."""
+    from zxc_tpu_torch.ops.copy_engine import QUAD_MODES
+    m = QUAD_MODES[mode]
+    rng = np.random.default_rng(seed)
+    nk = K if m.multi else 1
+    NG32 = 32 * -(-4 * MAXQ // 128)
+    shape = (B, nk * NG32, 128)
+    W = 2 * NT + 1 if m.split else NT + 1
+    tq_dt = np.uint8 if m.tq == torch.uint8 else np.int32
+    if garbage:
+        qs = rng.integers(-4, MAXQ + 5, (B, W))
+        qbase = rng.integers(-64, RLP + 64, (B, MAXQ))
+        rowrel = rng.integers(0, 2048, shape)
+        tq = rng.integers(0, 256, (B, MAXQ, 128)) if tq_dt == np.uint8 \
+            else rng.integers(-40, 300, (B, MAXQ, 128))
+    else:
+        qs = np.zeros((B, W), np.int64)
+        cap = max(2 * MAXQ // (W - 1), 1)
+        for b in range(B):
+            counts = rng.integers(0, cap + 1, W - 1)
+            if b == 1:
+                counts[0] = 5             # odd, not a multiple of 4
+            qs[b] = np.minimum(np.cumsum(np.r_[5 if b == 0 else 0, counts]),
+                               MAXQ)
+            c = int(rng.integers(1, W))       # a range that ends below q0
+            if qs[b, c - 1] > 3:
+                qs[b, c] = max(qs[b, c - 1] - int(rng.integers(1, 7)), 3)
+        align = 32 if mode == 17 else 16
+        qbase = rng.integers(0, (RLP - 128) // align + 1, (B, MAXQ)) * align
+        rowrel = np.where(rng.random(shape) < 0.1,
+                          rng.integers(128, 2048, shape),
+                          rng.integers(0, 128, shape))
+        tq = rng.integers(-3, m.rows + 3, (B, MAXQ, 128))
+        if tq_dt == np.uint8:
+            tq = rng.integers(0, m.rows + 12, (B, MAXQ, 128))
+    roll = rng.integers(0, 128, shape)
+    s = rng.integers(0, 128, shape)
+    e = np.minimum(s + rng.integers(0, 70, shape), 127)
+    w = (roll | (s << 7) | (e << 14) | (rowrel << 21)).astype(np.uint32)
+    w[rng.random(shape) < 0.2] = 1 << 7             # the packer's filler
+    lit8 = rng.integers(0, 256, (B, RLP, 128), dtype=np.uint8)
+    return (qs.astype(np.int32), qbase.astype(np.int32), w.view(np.int32),
+            tq.astype(tq_dt), lit8)
+
+
+QUAD_MODES = (12, 14, 15, 16, 17, 20, 21, 23, 24)
+
+
+@pytest.mark.parametrize("garbage", [False, True])
+@pytest.mark.parametrize("mode", QUAD_MODES)
+def test_quad_equals_plain_version_on_card(card, mode, garbage):
+    rows = CE.QUAD_MODES[mode].rows
+    for seed, (B, NT, MAXQ, RLP) in enumerate(((3, 2, 24, 256),
+                                               (16, 4, 96, 640))):
+        NT = NT * 4 if rows == 32 else NT
+        args = CE.group_from_numpy(*quad_plan(seed, B, NT, MAXQ, RLP, mode,
+                                              garbage), device=card)
+        before = CE.quad.launches
+        out = CE.quad(*args, mode=mode)
+        torch.cuda.synchronize()
+        assert CE.quad.launches == before + 1
+        assert torch.equal(out, CE.quad_reference(*args, mode=mode))
+
+
+def test_quad_refuses_bad_operands_on_card(card):
+    qs, qbase, pctrl, tq, lit8 = CE.group_from_numpy(
+        *quad_plan(0, 2, 1, 24, 256, 15), device=card)
+    with pytest.raises(ValueError, match="contiguous"):
+        CE.quad(qs, qbase, pctrl, tq,
+                lit8.transpose(1, 2).contiguous().transpose(1, 2), mode=15)
+    odd = torch.empty(pctrl.numel() + 1, dtype=torch.int32, device=card)
+    with pytest.raises(ValueError, match="aligned"):
+        CE.quad(qs, qbase, odd[1:].view(pctrl.shape), tq, lit8, mode=15)
+    with pytest.raises(TypeError):                  # never converted
+        CE.quad(qs, qbase, pctrl, tq.to(torch.uint8), lit8, mode=15)
+
+
+@pytest.mark.parametrize("variant", [12, 14, 15, 16, 17, 20, 21, 22, 23, 24])
+def test_attic_quad_paths_on_card(card, variant):
+    from zxc_tpu_torch.ops import attic_quad as Q, batch as BT
+    data = _card_corpus(11)
+    arc = Z.compress(data, Z.EncodeOpts(level=3, block_size=65536))
+    plan = BT.plan_frame(arc)
+    pieces, lits = BT.resolve_serial(plan)
+    fn = Q.ENTRIES[variant]
+    before = _all_launches()
+    q0 = CE.quad.launches
+    assert b"".join(fn(pieces, lits, plan.totals, 65536, dispatch=4)) == data
+    n = -(-plan.n_blocks // 4)
+    assert (CE.quad.launches - q0, _all_launches() - before) == (n, n)
+    assert fn(pieces, lits, plan.totals, 65536, dispatch=4, device="cpu") \
+        == fn(pieces, lits, plan.totals, 65536, dispatch=4, device=card)
 
 
 def _all_launches():

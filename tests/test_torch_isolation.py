@@ -13,6 +13,7 @@ import torch
 import zxc_tpu_torch as Z
 from zxc_tpu_torch import buildlib, runtime
 from zxc_tpu_torch.ops import _build, attic as AT, copy_engine as CE
+from zxc_tpu_torch.ops import attic_quad as AQ
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "zxc_tpu_torch")
@@ -33,7 +34,8 @@ def test_import_leaves_jax_and_zxc_tpu_out():
             "zxc_tpu_torch.codec.huffman, zxc_tpu_torch.format.varint, "
             "zxc_tpu_torch.ops.encode, zxc_tpu_torch.ops.encode_kernels, "
             "zxc_tpu_torch.codec.block_encode, zxc_tpu_torch.ops.expand, "
-            "zxc_tpu_torch.ops.attic, zxc_tpu_torch.codec.seekable\n"
+            "zxc_tpu_torch.ops.attic, zxc_tpu_torch.ops.attic_quad, "
+            "zxc_tpu_torch.codec.seekable\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'jaxlib')) or m == 'zxc_tpu' "
             "or m.startswith('zxc_tpu.'))\n"
@@ -70,6 +72,7 @@ def test_no_device_means_cuda_and_raises_without_it(tmp_path):
                     "cannot be observed")
     arc = Z.compress(b"abc" * 10000, Z.EncodeOpts(level=3, block_size=16384))
     hint = Z.write_hints(arc, str(tmp_path / "a.zxh"))
+    plan = Z.ops.plan_frame(arc)
     sek = Z.seekable.Seekable.open_bytes(Z.compress(
         b"abc" * 10000, Z.EncodeOpts(level=3, block_size=4096,
                                      seekable=True)))
@@ -78,7 +81,13 @@ def test_no_device_means_cuda_and_raises_without_it(tmp_path):
                  lambda **kw: Z.ops.decompress(arc, **kw),
                  lambda **kw: Z.ops.decompress(arc, use_serial=True, **kw),
                  lambda **kw: Z.ops.decompress(arc, use_pieces=False, **kw),
-                 lambda **kw: sek.decompress_range_device(0, 30000, **kw)):
+                 lambda **kw: sek.decompress_range_device(0, 30000, **kw),
+                 lambda **kw: b"".join(AQ.decode_blocks_v15(
+                     *Z.ops.batch.resolve_serial(plan), plan.totals, 16384,
+                     **kw)),
+                 lambda **kw: b"".join(AQ.decode_blocks_v23(
+                     *Z.ops.batch.resolve_serial(plan), plan.totals, 16384,
+                     **kw))):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
         with pytest.raises(RuntimeError, match="CUDA"):
@@ -101,6 +110,9 @@ def test_wrappers_refuse_other_devices():
     t13 = t[:3] + [t[3].to(torch.int32)] + t[4:]
     with pytest.raises(ValueError, match="cuda or cpu"):
         CE.v13(*t13)
+    for mode in (12, 15, 20):
+        with pytest.raises(ValueError, match="cuda or cpu"):
+            CE.quad(*t13, mode=mode)
     with pytest.raises(ValueError):
         Z.decompress_e2e(b"", device="meta")
     for kw in ({}, dict(use_serial=True), dict(use_serial=True, variant=2)):

@@ -1,26 +1,38 @@
-// Copy-engine decode kernels v19, v26, v27 and v13 for Hopper (sm_90a).
+// Copy-engine decode kernels for Hopper (sm_90a): v19, v26, v27, v13 and
+// the attic's quad-tile generations v12, v14-v17, v20, v21, v23, v24.
 //
 // Replaces the Pallas kernels of the JAX package:
 //   v19: zxc_tpu/ops/pallas_decode.py _make_kernel_v19 / v19_kernel
 //   v26: zxc_tpu/ops/pallas_decode.py _make_kernel_v26 / v26_kernel
 //   v27: zxc_tpu/ops/pallas_decode.py _make_kernel_v27 / v27_kernel
 //   v13: zxc_tpu/ops/pallas_decode.py _kernel_v13 / v13_kernel
+//   v12, v14, v15, v16, v17: tools/kernel_attic.py _kernel_v12 / v12_kernel,
+//        _kernel_v14 / v14_kernel, ..., _kernel_v17 / v17_kernel
+//   v20, v21, v23, v24: tools/kernel_attic.py _make_kernel_v20 /
+//        v20_kernel (also the v22 packer's kernel), ..., v24_kernel
 //
 // What they compute (the contract, not the TPU formulation). For block b
-// and tile t of kRows rows (128 for v19/v26/v27, 32 for v13), a
-// (kRows,128) int32 tile starts at 0. The kernel runs quads
-// q = qs[b,t] .. qs[b,t] + 2*((qs[b,t+1]-qs[b,t]) >> 1) - 1 (pair-unrolled:
-// an odd trailing quad is skipped). Slot i (0..127) of quad q reads, for
-// each plane j < K (K = 1 for v13), the control word
-//   w_j = pctrl[b, j*G32 + 32*(bat>>7) + (i&31), bat&127], bat = 4q + (i>>5).
-// Its source row is qbase[b,q] + (w_0 >>> 21) (logical shift) and its
-// target row tq[b,q,i] (uint8; int32 for v13). Lane l is covered by plane
+// and tile t of kRows rows (128; 32 for v13, v12 and v14), a (kRows,128)
+// int32 tile starts at 0. The kernel runs the quads of [qs[b,t], qs[b,t+1])
+// that the body's loop reaches (Walk below): pairs for v19, v26, v27, v13,
+// v15, v17, v21, v23 and v24 (an odd trailing quad is skipped), every quad
+// for v12, multiples of 4 for v16, fours then ones for v14. v20 splits a
+// supertile at qs[b,2t+1]: the pairs of [qs[b,2t], qs[b,2t+1]) read plane
+// 0 only, those of [qs[b,2t+1], qs[b,2t+2]) all K planes. Slot i (0..127)
+// of quad q reads, for each plane j < K (K = 1 for v13 and v12-v17), the
+// control word
+//   w_j = pctrl[b, j*G32 + 32*(bat>>7) + (i&31), bat&127], bat = 4q + (i>>5)
+// (v23: row (bat>>7)*32K + 32j + (i&31)). Its source row is qbase[b,q] +
+// (w_0 >>> 21) (logical shift) and its target row tq[b,q,i] (uint8; int32
+// for v13, v12, v14-v17 and v20). Lane l is covered by plane
 // j when ((w_j>>7)&127) <= l <= ((w_j>>14)&127); the roll is that of the
 // highest covering plane, and a covered lane adds win[src, (l + roll) & 127]
 // into tile[tgt, l]. After its quads the tile is stored to output rows
 // t*kRows .. t*kRows+kRows-1, reduced mod 256 (uint8: what every consumer
-// of the JAX kernel's int32 output does with it).
-//   v19, v13: the window is lit8[b] (RLP rows).
+// of the JAX kernel's int32 output does with it; v17's int8 carriers and
+// v24's f32 accumulator give the same sums mod 256 on every plan whose sums
+// stay below 2^24).
+//   v19, v13 and the attic modes: the window is lit8[b] (RLP rows).
 //   v26: window rows < RLP are lit8[b]; row RLP + r is this block's own
 //        output row r once its supertile has been stored, else 0 (the JAX
 //        kernel zeroes that region at block start and appends each tile
@@ -43,8 +55,8 @@
 // 128-byte source row once (one 4-byte word per thread, coalesced) and
 // rotates it with two shuffles and a funnel shift per plane; the tile
 // lives in shared memory as int32 and takes atomicAdd, so the add
-// semantics hold exactly for any control. v19 and v13 grid over
-// (tile, block); v26 and v27 loop over supertiles inside one CTA with
+// semantics hold exactly for any control. v19, v13 and the attic modes
+// grid over (tile, block), one CTA each; v26 and v27 loop over supertiles inside one CTA with
 // __syncthreads() between them, reading earlier supertiles back from
 // global memory. v27 reads its flat rows straight from global memory
 // (staging the window in shared memory with TMA is later work). TMA,
@@ -60,35 +72,64 @@ constexpr int kThreads = 1024;
 constexpr unsigned kFull = 0xffffffffu;
 
 enum Window { kLit = 0, kSelfRef = 1, kFlatSelfRef = 2 };
+// How a tile walks the quads of a range [q0, q1) (the JAX bodies' loops):
+// kOnes, kPairs and kFours run f * floor((q1 - q0) / f) quads from q0, none
+// when that is negative (f = 1, 2, 4); kFoursThenOnes (v14) runs
+// 4 * floor((q1 - q0) / 4) from q0 and then one at a time from
+// q0 + 4 * floor((q1 - q0) / 4) up to q1: every quad of [q0, q1), and for
+// q1 < q0 the ((q1 - q0) mod 4) quads just below q1.
+enum Walk { kOnes = 1, kPairs = 2, kFours = 4, kFoursThenOnes = 5 };
+// Where plane j of slot i of batch bat sits in pctrl: plane-major, row
+// j*G32 + 32*(bat>>7) + (i&31); or v23's interleaved rows,
+// (bat>>7)*32K + 32j + (i&31). Column bat & 127 in both.
+enum Layout { kPlaneMajor = 0, kInterleaved = 1 };
 
 template <typename TQ>
 struct Args {
-  const int32_t* qs;     // (B, NT+1)
+  const int32_t* qs;     // (B, QW): NT+1 columns, 2*NT+1 for a split walk
   const int32_t* qbase;  // (B, MAXQ)
   const int32_t* loff;   // (B,) v27 only
   const int32_t* pctrl;  // (B, K*G32, 128)
   const TQ* tq;          // (B, MAXQ, 128)
   const uint8_t* lit8;   // (B, RLP, 128); v27: flat (ROWS_TOT, 128)
   uint8_t* out;          // (B, NT*kRows, 128); read back by v26/v27
-  int NT, MAXQ, G32, K, RLP;
+  int NT, QW, MAXQ, G32, K, RLP;
   int64_t rows_tot;      // v27 only
 };
 
-template <int kRows, int kWin, typename TQ>
-__device__ void run_tile(const Args<TQ>& a, int b, int t, int32_t* tile) {
-  const int NR = a.NT * kRows;
-  for (int k = threadIdx.x; k < kRows * kRowBytes; k += blockDim.x)
-    tile[k] = 0;
-  __syncthreads();
+// the quads [lo, hi) that a range [q0, q1) runs under walk kWalk
+template <int kWalk>
+__device__ __forceinline__ void quad_range(int64_t q0, int64_t q1,
+                                           int64_t& lo, int64_t& hi) {
+  const int64_t d = q1 - q0;
+  if (kWalk == kFoursThenOnes) {
+    const int64_t n4 = d >> 2;             // floor, as the JAX shift
+    lo = q0 + 4 * (n4 < 0 ? n4 : 0);
+    hi = q1;
+  } else {
+    const int64_t n = d >> (kWalk == kOnes ? 0 : kWalk == kPairs ? 1 : 2);
+    lo = q0;
+    hi = q0 + kWalk * (n < 0 ? 0 : n);
+  }
+}
 
-  // quads [q0, q0 + 2*npairs) clipped to [0, MAXQ): quads outside it add
-  // nothing, and the clip bounds the loop for any qs
-  const int32_t* qs_b = a.qs + (size_t)b * (a.NT + 1);
-  const int64_t q0 = qs_b[t];
-  int64_t npairs = ((int64_t)qs_b[t + 1] - q0) >> 1;
-  if (npairs < 0) npairs = 0;
-  const int64_t qlo = q0 < 0 ? 0 : q0;
-  const int64_t qhi = q0 + 2 * npairs < a.MAXQ ? q0 + 2 * npairs : a.MAXQ;
+template <int kLayout>
+__device__ __forceinline__ size_t ctrl_index(int j, int bat, int i, int K,
+                                             int G32) {
+  const int row = kLayout == kInterleaved
+      ? ((bat >> 7) * K + j) * 32 + (i & 31)
+      : j * G32 + 32 * (bat >> 7) + (i & 31);
+  return (size_t)row * kRowBytes + (bat & 127);
+}
+
+// adds the slots of quads [q_lo, q_hi), clipped to [0, MAXQ), reading
+// nplanes planes of control, into the shared tile; no barrier
+template <int kRows, int kWin, int kLayout, typename TQ>
+__device__ void add_quads(const Args<TQ>& a, int b, int t, int64_t q_lo,
+                          int64_t q_hi, int nplanes, int32_t* tile) {
+  const int NR = a.NT * kRows;
+  const int64_t qlo = q_lo < 0 ? 0 : q_lo;
+  const int64_t qhi = q_hi < a.MAXQ ? q_hi : a.MAXQ;
   const int64_t nslots = qhi > qlo ? (qhi - qlo) * 128 : 0;
 
   const int warp = threadIdx.x >> 5;
@@ -113,9 +154,8 @@ __device__ void run_tile(const Args<TQ>& a, int b, int t, int32_t* tile) {
     const int64_t q = qlo + (s >> 7);
     const int i = (int)(s & 127);
     const int bat = 4 * (int)q + (i >> 5);
-    const size_t pidx = (size_t)(32 * (bat >> 7) + (i & 31)) * kRowBytes
-                        + (bat & 127);
-    const uint32_t w0 = (uint32_t)pc_b[pidx];
+    const uint32_t w0 =
+        (uint32_t)pc_b[ctrl_index<kLayout>(0, bat, i, a.K, a.G32)];
     const uint32_t rowrel = w0 >> 21;
     const int64_t tgt = a.tq[((size_t)b * a.MAXQ + q) * kRowBytes + i];
     const int64_t src = (int64_t)a.qbase[(size_t)b * a.MAXQ + q] + rowrel;
@@ -136,9 +176,9 @@ __device__ void run_tile(const Args<TQ>& a, int b, int t, int32_t* tile) {
 
     uint32_t val = 0;
     unsigned cover = 0;
-    for (int j = 0; j < a.K; ++j) {
+    for (int j = 0; j < nplanes; ++j) {
       const uint32_t w = j == 0 ? w0
-          : (uint32_t)pc_b[(size_t)j * a.G32 * kRowBytes + pidx];
+          : (uint32_t)pc_b[ctrl_index<kLayout>(j, bat, i, a.K, a.G32)];
       const int roll = w & 127;
       const int lo_l = (w >> 7) & 127;
       const int hi_l = (w >> 14) & 127;
@@ -163,6 +203,30 @@ __device__ void run_tile(const Args<TQ>& a, int b, int t, int32_t* tile) {
       if (((cover >> c) & 1) && v) atomicAdd(trow + c, v);
     }
   }
+}
+
+// One tile: cleared, its quads added (kSplit, v20: the pair-floored
+// [qs[2t], qs[2t+1]) with plane 0 only, then the pair-floored
+// [qs[2t+1], qs[2t+2]) with all K planes; else [qs[t], qs[t+1]) under
+// kWalk), stored mod 256.
+template <int kRows, int kWin, typename TQ, int kWalk = kPairs,
+          int kLayout = kPlaneMajor, bool kSplit = false>
+__device__ void run_tile(const Args<TQ>& a, int b, int t, int32_t* tile) {
+  const int NR = a.NT * kRows;
+  for (int k = threadIdx.x; k < kRows * kRowBytes; k += blockDim.x)
+    tile[k] = 0;
+  __syncthreads();
+
+  const int32_t* qs_b = a.qs + (size_t)b * a.QW;
+  int64_t lo, hi;
+  if (kSplit) {
+    quad_range<kPairs>(qs_b[2 * t], qs_b[2 * t + 1], lo, hi);
+    add_quads<kRows, kWin, kLayout>(a, b, t, lo, hi, 1, tile);
+    quad_range<kPairs>(qs_b[2 * t + 1], qs_b[2 * t + 2], lo, hi);
+  } else {
+    quad_range<kWalk>(qs_b[t], qs_b[t + 1], lo, hi);
+  }
+  add_quads<kRows, kWin, kLayout>(a, b, t, lo, hi, a.K, tile);
   __syncthreads();
 
   uint32_t* dst = reinterpret_cast<uint32_t*>(
@@ -179,10 +243,12 @@ __device__ void run_tile(const Args<TQ>& a, int b, int t, int32_t* tile) {
 }
 
 // one CTA per (tile, block)
-template <int kRows, typename TQ>
+template <int kRows, typename TQ, int kWalk = kPairs,
+          int kLayout = kPlaneMajor, bool kSplit = false>
 __global__ void __launch_bounds__(kThreads) tiled_kernel(Args<TQ> a) {
   extern __shared__ int32_t tile[];
-  run_tile<kRows, kLit>(a, blockIdx.y, blockIdx.x, tile);
+  run_tile<kRows, kLit, TQ, kWalk, kLayout, kSplit>(a, blockIdx.y,
+                                                    blockIdx.x, tile);
 }
 
 // one CTA per block, supertiles in order (self-referential window)
@@ -216,7 +282,7 @@ int zxc_copy_engine_v19(const int32_t* qs, const int32_t* qbase,
                         int MAXQ, int G32, int K, int RLP, void* stream) {
   if (B == 0 || NST == 0) return 0;
   Args<uint8_t> a{qs, qbase, nullptr, pctrl, tq, lit8, out,
-                  NST, MAXQ, G32, K, RLP, 0};
+                  NST, NST + 1, MAXQ, G32, K, RLP, 0};
   return launch(tiled_kernel<128, uint8_t>, dim3(NST, B), 128, a, stream);
 }
 
@@ -226,7 +292,7 @@ int zxc_copy_engine_v26(const int32_t* qs, const int32_t* qbase,
                         int MAXQ, int G32, int K, int RLP, void* stream) {
   if (B == 0 || NST == 0) return 0;
   Args<uint8_t> a{qs, qbase, nullptr, pctrl, tq, lit8, out,
-                  NST, MAXQ, G32, K, RLP, 0};
+                  NST, NST + 1, MAXQ, G32, K, RLP, 0};
   return launch(self_ref_kernel<kSelfRef>, dim3(B), 128, a, stream);
 }
 
@@ -237,7 +303,7 @@ int zxc_copy_engine_v27(const int32_t* qs, const int32_t* qbase,
                         int64_t rows_tot, void* stream) {
   if (B == 0 || NST == 0) return 0;
   Args<uint8_t> a{qs, qbase, loff, pctrl, tq, flat, out,
-                  NST, MAXQ, G32, K, RLP, rows_tot};
+                  NST, NST + 1, MAXQ, G32, K, RLP, rows_tot};
   return launch(self_ref_kernel<kFlatSelfRef>, dim3(B), 128, a, stream);
 }
 
@@ -247,8 +313,53 @@ int zxc_copy_engine_v13(const int32_t* qs, const int32_t* qbase,
                         int MAXQ, int G32, int RLP, void* stream) {
   if (B == 0 || NT == 0) return 0;
   Args<int32_t> a{qs, qbase, nullptr, pctrl, tq, lit8, out,
-                  NT, MAXQ, G32, 1, RLP, 0};
+                  NT, NT + 1, MAXQ, G32, 1, RLP, 0};
   return launch(tiled_kernel<32, int32_t>, dim3(NT, B), 32, a, stream);
+}
+
+// The attic's quad-tile generations as modes of the tile routine: mode
+// 12, 14 (32-row tiles), 15, 16, 17, 20 (128-row supertiles; int32 tq)
+// and 21, 23, 24 (uint8 tq). K is 1 for modes 12-17. Modes 17 and 15 are
+// one function (v17's int8 carriers give v15's sums mod 256), and so are
+// 21, 24 and v19 (v21 merges matmuls, v24 carries f32).
+int zxc_copy_engine_quad(const int32_t* qs, const int32_t* qbase,
+                         const int32_t* pctrl, const void* tq,
+                         const uint8_t* lit8, uint8_t* out, int B, int NT,
+                         int MAXQ, int G32, int K, int RLP, int mode,
+                         void* stream) {
+  if (B == 0 || NT == 0) return 0;
+  const int QW = mode == 20 ? 2 * NT + 1 : NT + 1;
+  Args<int32_t> a32{qs, qbase, nullptr, pctrl,
+                    static_cast<const int32_t*>(tq), lit8, out,
+                    NT, QW, MAXQ, G32, K, RLP, 0};
+  Args<uint8_t> a8{qs, qbase, nullptr, pctrl,
+                   static_cast<const uint8_t*>(tq), lit8, out,
+                   NT, QW, MAXQ, G32, K, RLP, 0};
+  const dim3 grid(NT, B);
+  switch (mode) {
+    case 12:
+      return launch(tiled_kernel<32, int32_t, kOnes>, grid, 32, a32, stream);
+    case 14:
+      return launch(tiled_kernel<32, int32_t, kFoursThenOnes>, grid, 32, a32,
+                    stream);
+    case 15:
+    case 17:
+      return launch(tiled_kernel<128, int32_t>, grid, 128, a32, stream);
+    case 16:
+      return launch(tiled_kernel<128, int32_t, kFours>, grid, 128, a32,
+                    stream);
+    case 20:
+      return launch(tiled_kernel<128, int32_t, kPairs, kPlaneMajor, true>,
+                    grid, 128, a32, stream);
+    case 21:
+    case 24:
+      return launch(tiled_kernel<128, uint8_t>, grid, 128, a8, stream);
+    case 23:
+      return launch(tiled_kernel<128, uint8_t, kPairs, kInterleaved>, grid,
+                    128, a8, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // extern "C"

@@ -64,6 +64,8 @@ def _bind_copy_engine(L, vp, ci) -> None:
                                                             vp]
     L.zxc_copy_engine_v13.restype = ci
     L.zxc_copy_engine_v13.argtypes = [vp] * 6 + [ci] * 5 + [vp]
+    L.zxc_copy_engine_quad.restype = ci
+    L.zxc_copy_engine_quad.argtypes = [vp] * 6 + [ci] * 7 + [vp]
 
 
 def _bind_encode(L, vp, ci) -> None:

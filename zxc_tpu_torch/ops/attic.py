@@ -276,10 +276,12 @@ def pack_groups(pieces, lit_fulls, totals, block: int, dispatch: int = 16):
 
 OTHER_VARIANTS = (
     "the port decodes resolver plans with variants 4-7 through "
-    "attic.decode_blocks_v4 and with 9, 10 and 11 through "
-    "attic.decode_blocks_v9, decode_blocks_v10 and decode_blocks_v11, "
-    "which the JAX package's decompress does not route either; the other "
-    "attic kernels are not ported yet (ROADMAP queue 1 item 1)")
+    "attic.decode_blocks_v4, with 9, 10 and 11 through "
+    "attic.decode_blocks_v9, decode_blocks_v10 and decode_blocks_v11, and "
+    "with 12, 14-17 and 20-24 through attic_quad.decode_blocks_v12, "
+    "decode_blocks_v14, ..., decode_blocks_v24, which the JAX package's "
+    "decompress does not route either; v25 is not ported yet (ROADMAP "
+    "queue 1 item 2)")
 
 
 def decode_blocks(pieces, lit_fulls, totals, block: int, device=None,

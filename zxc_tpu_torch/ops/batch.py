@@ -23,9 +23,11 @@ of three routes, as the JAX package routes them:
 The pieces and chase routes are PyTorch tensor ops (the JAX package's
 XLA code) and launch no hand-written kernel. Device entropy decode
 (``device_entropy=True``, ROADMAP queue 1 item 5) and the other attic
-variants (queue 1 item 1) raise ``NotImplementedError``: as in the JAX
-package, ``decompress`` routes none of them; variants 4-7 and 9-11 have
-their own entries (``attic.decode_blocks_v4/v9/v10/v11``).
+variants raise ``NotImplementedError``: as in the JAX package,
+``decompress`` routes none of them; variants 4-7 and 9-11 have their own
+entries (``attic.decode_blocks_v4/v9/v10/v11``), and so have 12, 14-17 and
+20-24 (``attic_quad.decode_blocks_v12`` ... ``decode_blocks_v24``); v25 is
+not ported yet (queue 1 item 2).
 """
 from __future__ import annotations
 

@@ -1,35 +1,44 @@
-"""Copy-engine decode kernels v19, v26, v27 and v13: wrappers, plain
+"""Copy-engine decode kernels v19, v26, v27, v13 and the attic's quad-tile
+generations (``quad``, modes 12, 14-17, 20, 21, 23, 24): wrappers, plain
 versions and launch counters.
 
 Replaces ``zxc_tpu/ops/pallas_decode.py``: ``_make_kernel_v19`` /
 ``v19_kernel``, ``_make_kernel_v26`` / ``v26_kernel``, ``_make_kernel_v27``
-/ ``v27_kernel`` and ``_kernel_v13`` / ``v13_kernel``. The Pallas kernels
-reach their function through one-hot MXU matmuls and bf16 byte carriers
+/ ``v27_kernel`` and ``_kernel_v13`` / ``v13_kernel``; and
+``tools/kernel_attic.py``: ``v12_kernel``, ``v14_kernel``, ``v15_kernel``,
+``v16_kernel``, ``v17_kernel``, ``v20_kernel``, ``v21_kernel``,
+``v23_kernel`` and ``v24_kernel``. The Pallas kernels reach their function
+through one-hot MXU matmuls and bf16 (v17: int8, v24: f32) byte carriers
 because gathers are slow on a TPU; the Hopper kernels
 (``csrc/copy_engine.cu``) do indexed byte loads and shared-memory adds
-instead. The function, for block b and tile t of ``R`` rows (R = 128 for
-v19/v26/v27, 32 for v13):
+instead. The function, for block b and tile t of ``R`` rows (R = 128; 32
+for v13, v12 and v14):
 
-* an (R,128) int32 tile starts at 0 and runs quads
-  ``qs[b,t] .. qs[b,t] + 2*((qs[b,t+1]-qs[b,t]) >> 1) - 1`` (pair-unrolled:
-  an odd trailing quad is skipped);
+* an (R,128) int32 tile starts at 0 and runs the quads of
+  ``[qs[b,t], qs[b,t+1])`` that the body's loop reaches: ``QuadMode.floor``
+  f runs ``f * floor((q1 - q0) / f)`` quads from q0 (pairs for v19, v26,
+  v27 and v13: an odd trailing quad is skipped), v14 then one at a time up
+  to q1, and v20 runs the pairs of ``[qs[b,2t], qs[b,2t+1])`` with plane 0
+  only and those of ``[qs[b,2t+1], qs[b,2t+2])`` with all K planes;
 * slot i of quad q reads plane j's control word
   ``w_j = pctrl[b, j*G32 + 32*(bat>>7) + (i&31), bat&127]``,
-  ``bat = 4q + (i>>5)`` (one plane for v13); its source row is
-  ``qbase[b,q] + (w_0 >>> 21)`` and its target row ``tq[b,q,i]`` (uint8;
-  int32 for v13);
+  ``bat = 4q + (i>>5)`` (v23: row ``(bat>>7)*32K + 32j + (i&31)``; one
+  plane for v13 and v12-v17); its source row is ``qbase[b,q] + (w_0 >>>
+  21)`` and its target row ``tq[b,q,i]`` (uint8 for v19, v26, v27, v21, v23
+  and v24; int32 for the rest);
 * lane l is covered by plane j when ``((w_j>>7)&127) <= l <= ((w_j>>14)&127)``;
   the roll is the highest covering plane's ``w_j & 127`` and a covered lane
   adds ``win[src, (l + roll) & 127]`` into ``tile[tgt, l]``;
 * the tile is stored to output rows ``t*R .. t*R+R-1`` mod 256.
 
-v19's and v13's window is ``lit8[b]``. v26's window is ``lit8[b]`` followed
-by the block's own output rows, each of which reads 0 until its supertile
-has been stored. v27 is v26 whose rows ``r < RLP`` are
+v19's, v13's and the attic modes' window is ``lit8[b]``. v26's window is
+``lit8[b]`` followed by the block's own output rows, each of which reads 0
+until its supertile has been stored. v27 is v26 whose rows ``r < RLP`` are
 ``flat[loff[b] + r]`` of one ragged lit buffer per group (a row outside
 ``[0, ROWS_TOT)``, or any row of a block with ``loff[b] < 0``, reads 0).
 A slot whose window-relative row exceeds 127, whose source lies outside
-the window or whose target row lies outside the tile adds nothing.
+the window, whose target row lies outside the tile or whose quad lies
+outside ``[0, MAXQ)`` adds nothing.
 
 Bound on the card: the bytes each call must move (``bytes_moved``: ``qs``,
 the live quads' control and the window rows their slots read, each read
@@ -47,6 +56,8 @@ launches in ``<wrapper>.launches``.
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
@@ -55,21 +66,49 @@ TILE_ROWS = 128    # rows per supertile (v19, v26, v27)
 V13_ROWS = 32      # rows per tile (v13)
 
 
-def _ctrl_dims(qs, qbase, pctrl, tq, K: int, rows: int = TILE_ROWS):
-    """Validate one dispatch group's control; returns (B, NT, MAXQ,
-    G32)."""
-    tq_dt = torch.int32 if rows == V13_ROWS else torch.uint8
+class QuadMode(NamedTuple):
+    """How one generation of the tile routine walks and reads its control."""
+    rows: int                  # tile rows: 128, or 32 (v13, v12, v14)
+    floor: int                 # a range runs floor * (its count // floor)
+    tq: torch.dtype            # target rows' type
+    multi: bool = False        # reads K planes (else one)
+    epilogue: bool = False     # v14: then one quad at a time to its end
+    split: bool = False        # v20: plane-0 range, then K-plane range
+    interleaved: bool = False  # v23: plane j at (bat>>7)*32K + 32j + sub
+
+
+V19_MODE = QuadMode(TILE_ROWS, 2, torch.uint8, multi=True)
+V13_MODE = QuadMode(V13_ROWS, 2, torch.int32)
+# the attic's generations (tools/kernel_attic.py); 17 is 15's function
+# mod 256, 21 and 24 are v19's
+QUAD_MODES = {
+    12: QuadMode(V13_ROWS, 1, torch.int32),
+    14: QuadMode(V13_ROWS, 4, torch.int32, epilogue=True),
+    15: QuadMode(TILE_ROWS, 2, torch.int32),
+    16: QuadMode(TILE_ROWS, 4, torch.int32),
+    17: QuadMode(TILE_ROWS, 2, torch.int32),
+    20: QuadMode(TILE_ROWS, 2, torch.int32, multi=True, split=True),
+    21: V19_MODE,
+    23: V19_MODE._replace(interleaved=True),
+    24: V19_MODE,
+}
+
+
+def _ctrl_dims(qs, qbase, pctrl, tq, K: int, mode: QuadMode = V19_MODE):
+    """Validate one dispatch group's control for ``mode`` (``K`` planes);
+    returns (B, NT, MAXQ, G32)."""
     want = ((qs, torch.int32, 2), (qbase, torch.int32, 2),
-            (pctrl, torch.int32, 3), (tq, tq_dt, 3))
+            (pctrl, torch.int32, 3), (tq, mode.tq, 3))
     for name, (t, dt, nd) in zip(("qs", "qbase", "pctrl", "tq"), want):
         if not isinstance(t, torch.Tensor) or t.dtype != dt or t.dim() != nd:
             raise TypeError(f"{name} must be a {nd}-d {dt} tensor")
         if t.device != qs.device:
             raise ValueError(f"{name} is on {t.device}, qs on {qs.device}")
     B = qs.shape[0]
-    NT = qs.shape[1] - 1
+    NT = (qs.shape[1] - 1) // 2 if mode.split else qs.shape[1] - 1
     MAXQ = qbase.shape[1]
-    if NT < 0 or K < 1 or pctrl.shape[1] % K:
+    if (NT < 0 or K < 1 or pctrl.shape[1] % K
+            or (mode.split and qs.shape[1] % 2 == 0)):
         raise ValueError(f"bad qs {tuple(qs.shape)} / pctrl "
                          f"{tuple(pctrl.shape)} for K={K}")
     G32 = pctrl.shape[1] // K
@@ -82,9 +121,9 @@ def _ctrl_dims(qs, qbase, pctrl, tq, K: int, rows: int = TILE_ROWS):
     return B, NT, MAXQ, G32
 
 
-def _dims(qs, qbase, pctrl, tq, lit8, K: int, rows: int = TILE_ROWS):
+def _dims(qs, qbase, pctrl, tq, lit8, K: int, mode: QuadMode = V19_MODE):
     """Validate one dispatch group; returns (B, NT, MAXQ, G32, RLP)."""
-    B, NT, MAXQ, G32 = _ctrl_dims(qs, qbase, pctrl, tq, K, rows)
+    B, NT, MAXQ, G32 = _ctrl_dims(qs, qbase, pctrl, tq, K, mode)
     if (not isinstance(lit8, torch.Tensor) or lit8.dtype != torch.uint8
             or lit8.dim() != 3):
         raise TypeError(f"lit8 must be a 3-d {torch.uint8} tensor")
@@ -111,52 +150,71 @@ def _flat_dims(qs, loff, flat, RLP: int):
                          f"B={qs.shape[0]}")
 
 
+def quad_ranges(qs, t: int, mode: QuadMode, K: int):
+    """The quad ranges tile ``t`` of each block runs: [(lo, hi, planes)]
+    with int64 (B,) bounds (before the clip to [0, MAXQ)), as the body's
+    loops walk them."""
+    c = qs.long()
+    if mode.split:           # v20: pairs of [q0, qm) on plane 0, [qm, q1)
+        q0, qm, q1 = c[:, 2 * t], c[:, 2 * t + 1], c[:, 2 * t + 2]
+        return [(q0, q0 + 2 * ((qm - q0) >> 1).clamp(min=0), 1),
+                (qm, qm + 2 * ((q1 - qm) >> 1).clamp(min=0), K)]
+    q0, q1 = c[:, t], c[:, t + 1]
+    n = torch.div(q1 - q0, mode.floor, rounding_mode="floor")
+    planes = K if mode.multi else 1
+    if mode.epilogue:        # v14: fours, then ones from q0 + 4n to q1
+        return [(q0 + mode.floor * n.clamp(max=0), q1, planes)]
+    return [(q0, q0 + mode.floor * n.clamp(min=0), planes)]
+
+
 def _reference(qs, qbase, pctrl, tq, lit8, K: int, self_ref: bool,
-               rows: int = TILE_ROWS):
-    B, NT, MAXQ, G32, RLP = _dims(qs, qbase, pctrl, tq, lit8, K, rows)
+               mode: QuadMode = V19_MODE):
+    B, NT, MAXQ, G32, RLP = _dims(qs, qbase, pctrl, tq, lit8, K, mode)
+    rows = mode.rows
     dev = qs.device
     NR = NT * rows
     out = torch.zeros((B, NR, LANES), dtype=torch.uint8, device=dev)
     lanes = torch.arange(LANES, device=dev)
     slot = torch.arange(128, device=dev)
-    planes = torch.arange(K, device=dev)
     qidx = torch.arange(MAXQ, device=dev)
-    pc = pctrl.reshape(B, K, G32, LANES)
     win_rows = RLP + NR if self_ref else RLP
     for t in range(NT):
-        q0 = qs[:, t].long()
-        qend = q0 + 2 * ((qs[:, t + 1].long() - q0) >> 1).clamp(min=0)
-        bb, qq = ((qidx >= q0[:, None]) & (qidx < qend[:, None])).nonzero(
-            as_tuple=True)
-        if bb.numel() == 0:
-            continue
-        bat = 4 * qq[:, None] + (slot >> 5)                        # (n,128)
-        w = pc[bb[:, None, None], planes,
-               (32 * (bat >> 7) + (slot & 31))[:, :, None],
-               (bat & 127)[:, :, None]].long()                     # (n,128,K)
-        rowrel = (w[:, :, 0] >> 21) & 0x7FF                        # logical
-        src = qbase[bb, qq].long()[:, None] + rowrel
-        tgt = tq[bb, qq].long()
-        valid = ((rowrel < 128) & (tgt >= 0) & (tgt < rows) & (src >= 0)
-                 & (src < win_rows))
-        lo = ((w >> 7) & 127)[..., None]
-        hi = ((w >> 14) & 127)[..., None]
-        cov = (lo <= lanes) & (lanes <= hi)                        # (n,128,K,128)
-        roll = (w[:, :, 0] & 127)[..., None].expand(-1, -1, LANES)
-        for j in range(1, K):                 # the highest covering plane
-            roll = torch.where(cov[:, :, j], (w[:, :, j] & 127)[..., None],
-                               roll)
-        keep = cov.any(dim=2) & valid[..., None]
         # the window as the kernel sees it at supertile t: v26's output
         # rows not yet stored are still 0 in `out`
         win = torch.cat([lit8, out], dim=1) if self_ref else lit8
-        wrow = bb[:, None] * win.shape[1] + torch.where(valid, src, 0)
-        idx = (wrow[..., None] * LANES + ((lanes + roll) & 127))
-        val = torch.where(keep, win.reshape(-1)[idx].to(torch.int32), 0)
         tile = torch.zeros(B * rows * LANES, dtype=torch.int32, device=dev)
-        tidx = ((bb[:, None] * rows + torch.where(valid, tgt, 0))[..., None]
-                * LANES + lanes)
-        tile.index_add_(0, tidx.reshape(-1), val.reshape(-1))
+        for lo, hi, nk in quad_ranges(qs, t, mode, K):
+            bb, qq = ((qidx >= lo[:, None]) & (qidx < hi[:, None])).nonzero(
+                as_tuple=True)
+            if bb.numel() == 0:
+                continue
+            bat = 4 * qq[:, None] + (slot >> 5)                     # (n,128)
+            planes = torch.arange(nk, device=dev)
+            if mode.interleaved:
+                prow = (((bat >> 7) * K)[..., None] + planes) * 32
+            else:
+                prow = planes * G32 + (32 * (bat >> 7))[..., None]
+            w = pctrl[bb[:, None, None], prow + (slot & 31)[:, None],
+                      (bat & 127)[:, :, None]].long()               # (n,128,nk)
+            rowrel = (w[:, :, 0] >> 21) & 0x7FF                     # logical
+            src = qbase[bb, qq].long()[:, None] + rowrel
+            tgt = tq[bb, qq].long()
+            valid = ((rowrel < 128) & (tgt >= 0) & (tgt < rows) & (src >= 0)
+                     & (src < win_rows))
+            lo_l = ((w >> 7) & 127)[..., None]
+            hi_l = ((w >> 14) & 127)[..., None]
+            cov = (lo_l <= lanes) & (lanes <= hi_l)                 # (n,128,nk,128)
+            roll = (w[:, :, 0] & 127)[..., None].expand(-1, -1, LANES)
+            for j in range(1, nk):            # the highest covering plane
+                roll = torch.where(cov[:, :, j], (w[:, :, j] & 127)[..., None],
+                                   roll)
+            keep = cov.any(dim=2) & valid[..., None]
+            wrow = bb[:, None] * win.shape[1] + torch.where(valid, src, 0)
+            idx = (wrow[..., None] * LANES + ((lanes + roll) & 127))
+            val = torch.where(keep, win.reshape(-1)[idx].to(torch.int32), 0)
+            tidx = ((bb[:, None] * rows + torch.where(valid, tgt, 0))[..., None]
+                    * LANES + lanes)
+            tile.index_add_(0, tidx.reshape(-1), val.reshape(-1))
         out[:, t * rows:(t + 1) * rows] = (
             tile.view(B, rows, LANES) & 255).to(torch.uint8)
     return out
@@ -198,7 +256,7 @@ def v13_reference(qs, qbase, pctrl, tq, lit8) -> torch.Tensor:
     """Plain PyTorch v13 on any device: one plane, 32-row tiles, int32 tq.
     (B, NT*32, 128) uint8."""
     return _reference(qs, qbase, pctrl, tq, lit8, 1, self_ref=False,
-                      rows=V13_ROWS)
+                      mode=V13_MODE)
 
 
 def _launch(entry: str, args, B: int, out_rows: int, ints) -> torch.Tensor:
@@ -282,10 +340,45 @@ def v13(qs, qbase, pctrl, tq, lit8) -> torch.Tensor:
     args = (qs, qbase, pctrl, tq, lit8)
     if not _on_card("v13", qs):
         return v13_reference(*args)
-    B, NT, MAXQ, G32, RLP = _dims(*args, 1, V13_ROWS)
+    B, NT, MAXQ, G32, RLP = _dims(*args, 1, V13_MODE)
     out = _launch("zxc_copy_engine_v13", args, B, NT * V13_ROWS,
                   (B, NT, MAXQ, G32, RLP))
     v13.launches += 1
+    return out
+
+
+def _quad_mode(mode: int) -> QuadMode:
+    if mode not in QUAD_MODES:
+        raise ValueError(f"quad mode {mode}: one of {sorted(QUAD_MODES)}")
+    return QUAD_MODES[mode]
+
+
+def quad_reference(qs, qbase, pctrl, tq, lit8, mode: int,
+                   K: int = 2) -> torch.Tensor:
+    """Plain PyTorch version of the attic's quad-tile generation ``mode``
+    on any device (``K`` planes for modes 20, 21, 23 and 24; modes 12-17
+    read one): (B, NT*R, 128) uint8."""
+    m = _quad_mode(mode)
+    return _reference(qs, qbase, pctrl, tq, lit8, K if m.multi else 1,
+                      self_ref=False, mode=m)
+
+
+def quad(qs, qbase, pctrl, tq, lit8, mode: int, K: int = 2) -> torch.Tensor:
+    """The attic's quad-tile generation ``mode`` (``QUAD_MODES``) over one
+    dispatch group: the CUDA kernel for CUDA tensors, the plain version for
+    CPU tensors. ``tq`` must have the mode's type (never converted); v20's
+    ``qs`` is 2*NST+1 wide. Returns (B, NT*R, 128) uint8."""
+    m = _quad_mode(mode)
+    K = K if m.multi else 1
+    args = (qs, qbase, pctrl, tq, lit8)
+    if not _on_card("quad", qs):
+        return quad_reference(*args, mode, K)
+    B, NT, MAXQ, G32, RLP = _dims(*args, K, m)
+    if B > 65535:
+        raise ValueError(f"quad: B {B} is over 65535")
+    out = _launch("zxc_copy_engine_quad", args, B, NT * m.rows,
+                  (B, NT, MAXQ, G32, K, RLP, mode))
+    quad.launches += 1
     return out
 
 
@@ -293,27 +386,33 @@ v19.launches = 0
 v26.launches = 0
 v27.launches = 0
 v13.launches = 0
+quad.launches = 0
 
-KERNELS = {19: v19, 26: v26, 27: v27, 13: v13}
+KERNELS = {19: v19, 26: v26, 27: v27, 13: v13, "quad": quad}
 REFERENCES = {19: v19_reference, 26: v26_reference, 27: v27_reference,
-              13: v13_reference}
+              13: v13_reference, "quad": quad_reference}
 
 
 def bytes_moved(qs, qbase, pctrl, tq, lit8, K: int = 2, *,
-                rows: int = TILE_ROWS, loff=None, RLP: int | None = None
-                ) -> int:
+                rows: int = TILE_ROWS, loff=None, RLP: int | None = None,
+                mode: int | None = None) -> int:
     """The bytes one call must move for this group's control, padding
-    excluded: all of ``qs``; for each live quad (inside a tile's
-    pair-rounded range and below MAXQ) its ``qbase`` word, its 128 ``tq``
-    entries and its K x 128 ``pctrl`` words; each distinct window row of
-    ``lit8`` that a slot adding anything reads (v26's and v27's rows past
-    RLP are the call's own output, not an input); and the (B, NT*rows,
-    128) uint8 output. v13: ``rows=32, K=1`` (int32 ``tq``). v27: ``lit8``
-    is the flat buffer, with ``loff`` (whose B words count too) and
-    ``RLP``."""
+    excluded: all of ``qs``; for each live quad (inside a range that a tile
+    runs, below MAXQ) its ``qbase`` word, its 128 ``tq`` entries at their
+    item size and the 128 ``pctrl`` words of each plane it reads; each
+    distinct window row of ``lit8`` that a slot adding anything reads (v26's
+    and v27's rows past RLP are the call's own output, not an input); and
+    the (B, NT*rows, 128) uint8 output. v13: ``rows=32, K=1`` (int32
+    ``tq``). v27: ``lit8`` is the flat buffer, with ``loff`` (whose B words
+    count too) and ``RLP``. ``mode``: an attic generation of ``quad``
+    (its rows, walk, split and layout; K planes only if it reads them)."""
+    m = (_quad_mode(mode) if mode is not None
+         else V13_MODE if rows == V13_ROWS else V19_MODE)
+    K = K if m.multi else 1
     qs, qbase, pctrl, tq = (np.asarray(a.cpu()) if isinstance(a, torch.Tensor)
                             else np.asarray(a) for a in (qs, qbase, pctrl, tq))
-    B, NT1 = qs.shape
+    B = qs.shape[0]
+    NT = (qs.shape[1] - 1) // 2 if m.split else qs.shape[1] - 1
     MAXQ = qbase.shape[1]
     G32 = pctrl.shape[1] // K
     flat = loff is not None
@@ -323,41 +422,46 @@ def bytes_moved(qs, qbase, pctrl, tq, lit8, K: int = 2, *,
     else:
         RLP = lit8.shape[1]
     qidx = np.arange(MAXQ)
-    live = np.zeros((B, MAXQ), bool)
-    for t in range(NT1 - 1):
-        q0 = qs[:, t].astype(np.int64)
-        qend = q0 + 2 * np.maximum((qs[:, t + 1].astype(np.int64) - q0) >> 1,
-                                   0)
-        live |= (qidx >= q0[:, None]) & (qidx < qend[:, None])
-    bb, qq = live.nonzero()
+    planes = np.zeros((B, MAXQ), np.int64)      # planes a live quad reads
+    qs_t = torch.from_numpy(np.ascontiguousarray(qs))
+    for t in range(NT):
+        for lo, hi, nk in quad_ranges(qs_t, t, m, K):
+            planes[(qidx >= lo.numpy()[:, None])
+                   & (qidx < hi.numpy()[:, None])] = nk
     slot = np.arange(128)
-    bat = 4 * qq[:, None] + (slot >> 5)                              # (n,128)
-    w = pctrl[bb[:, None, None], np.arange(K) * G32
-              + (32 * (bat >> 7) + (slot & 31))[:, :, None],
-              (bat & 127)[:, :, None]].astype(np.int64) & 0xFFFFFFFF  # (n,128,K)
-    rowrel = w[:, :, 0] >> 21
-    src = qbase[bb, qq].astype(np.int64)[:, None] + rowrel
-    tgt = tq[bb, qq].astype(np.int64)
-    adds = ((((w >> 7) & 127) <= ((w >> 14) & 127)).any(axis=2)
-            & (rowrel < 128) & (tgt >= 0) & (tgt < rows)
-            & (src >= 0) & (src < RLP))
-    if flat:   # rows of the shared flat buffer
-        frow = loff[bb][:, None] + src
-        adds &= ((loff[bb] >= 0)[:, None] & (frow >= 0)
-                 & (frow < lit8.shape[0]))
-        n_rows = len(np.unique(frow[adds]))
-    else:
-        n_rows = len(np.unique((bb[:, None] * RLP + src)[adds]))
-    control = len(qq) * (4 + LANES * tq.itemsize + K * LANES * 4)
+    control, read = 0, []
+    for nk in np.unique(planes[planes > 0]):
+        bb, qq = (planes == nk).nonzero()
+        bat = 4 * qq[:, None] + (slot >> 5)                          # (n,128)
+        j = np.arange(nk)
+        prow = ((((bat >> 7) * K)[..., None] + j) * 32 if m.interleaved
+                else j * G32 + (32 * (bat >> 7))[..., None])
+        w = pctrl[bb[:, None, None], prow + (slot & 31)[:, None],
+                  (bat & 127)[:, :, None]].astype(np.int64) & 0xFFFFFFFF
+        rowrel = w[:, :, 0] >> 21
+        src = qbase[bb, qq].astype(np.int64)[:, None] + rowrel
+        tgt = tq[bb, qq].astype(np.int64)
+        adds = ((((w >> 7) & 127) <= ((w >> 14) & 127)).any(axis=2)
+                & (rowrel < 128) & (tgt >= 0) & (tgt < m.rows)
+                & (src >= 0) & (src < RLP))
+        if flat:   # rows of the shared flat buffer
+            frow = loff[bb][:, None] + src
+            adds &= ((loff[bb] >= 0)[:, None] & (frow >= 0)
+                     & (frow < lit8.shape[0]))
+            read.append(frow[adds])
+        else:
+            read.append((bb[:, None] * RLP + src)[adds])
+        control += len(qq) * (4 + LANES * tq.itemsize + nk * LANES * 4)
+    n_rows = len(np.unique(np.concatenate(read))) if read else 0
     return (qs.nbytes + control + n_rows * LANES + (4 * B if flat else 0)
-            + B * (NT1 - 1) * rows * LANES)
+            + B * NT * m.rows * LANES)
 
 
 def group_from_numpy(*arrays, device="cpu"):
     """One dispatch group's packed control, as made by the JAX package's
     packers or the native prep, to the port's tensors on ``device``, bit
     for bit: (qs, qbase, pctrl, tq, lit8) with int32 qs/qbase/pctrl, uint8
-    tq (int32 for v13) and uint8 lit8; or v27's (qs, qbase, loff, pctrl,
+    tq (int32 for v13 and the int32 attic packers) and uint8 lit8; or v27's (qs, qbase, loff, pctrl,
     tq, flat) with int32 loff and uint8 flat."""
     if len(arrays) == 5:
         names = ("qs", "qbase", "pctrl", "tq", "lit8")

@@ -33,6 +33,81 @@ def lane_ops_blocks(pieces_list, totals):
     return per
 
 
+def window_chunks(src, base_align: int = 16):
+    """Split row-sorted sources into runs of at most 128 whose rows lie
+    within 127 of the run's base (the first row rounded down to
+    ``base_align``, as the bodies' aligned window loads need): [(base, i,
+    j)]."""
+    out = []
+    i, n = 0, len(src)
+    while i < n:
+        base = int(src[i]) & ~(base_align - 1)
+        j = min(i + 128, n)
+        while src[j - 1] - base > 127:       # shrink until the window fits
+            j -= 1
+        out.append((base, i, j))
+        i = j
+    return out
+
+
+def supertile_ops(rows, rl, s, e, tile_start, st: int):
+    """The live lane ops of 128-row supertile ``st`` (its four 32-row
+    tiles) as int64 rows [src, tgt, rl, s, e - 1], or None."""
+    parts = []
+    nts = len(tile_start) - 1
+    for g in range(4):
+        t = st * 4 + g
+        if t >= nts:
+            break
+        b0, b1 = tile_start[t], tile_start[t + 1]
+        if b1 <= b0:
+            continue
+        er = rows[b0:b1].reshape(-1)
+        es = s[b0:b1].reshape(-1)
+        ee = e[b0:b1].reshape(-1)
+        erl = rl[b0:b1].reshape(-1)
+        live = np.nonzero(ee > es)[0]
+        if not len(live):
+            continue
+        tgt = (live & 31) + 32 * g
+        parts.append(np.stack([er[live], tgt, erl[live], es[live],
+                               ee[live] - 1], axis=1))
+    return np.concatenate(parts, axis=0) if parts else None
+
+
+def group_slots(ops, K: int):
+    """Ops [src, tgt, rl, s, e - 1] sharing (src, tgt) grouped into slots of
+    K sub-ops: (ssrc, stgt, sctl (n, K, 3), sub-ops a slot holds); an empty
+    sub-op is s=1 > e-1=0."""
+    if ops is None:
+        z = np.zeros(0, np.int64)
+        return z, z, np.zeros((0, K, 3), np.int64), z
+    key = ops[:, 0] * 128 + ops[:, 1]
+    order = np.argsort(key, kind="stable")
+    ops = ops[order]
+    ks = key[order]
+    new = np.r_[True, ks[1:] != ks[:-1]]
+    gid = np.cumsum(new) - 1
+    gstart = np.flatnonzero(new)
+    within = np.arange(len(ks)) - gstart[gid]
+    gsizes = np.diff(np.r_[gstart, len(ks)])
+    spg = -(-gsizes // K)
+    sbase = np.r_[0, np.cumsum(spg)[:-1]]
+    slot_of = sbase[gid] + within // K
+    sub_of = within % K
+    n_slots = int(spg.sum())
+    ssrc = np.zeros(n_slots, np.int64)
+    stgt = np.zeros(n_slots, np.int64)
+    sctl = np.zeros((n_slots, K, 3), np.int64)
+    sctl[:, :, 1] = 1
+    ssrc[slot_of] = ops[:, 0]
+    stgt[slot_of] = ops[:, 1]
+    sctl[slot_of, sub_of, 0] = ops[:, 2]
+    sctl[slot_of, sub_of, 1] = ops[:, 3]
+    sctl[slot_of, sub_of, 2] = ops[:, 4]
+    return ssrc, stgt, sctl, np.bincount(slot_of, minlength=n_slots)
+
+
 def pack_blocks_v12(pieces_list, lit_list, totals, block: int,
                     per=None, MAXQ=None, RL=None, quad_align: int = 1):
     """Pack the v12 dispatch batch.
@@ -74,21 +149,10 @@ def pack_blocks_v12(pieces_list, lit_list, totals, block: int,
             lops = np.stack([lr, erl[live][order], es[live][order],
                              ee[live][order] - 1, tgt[order]], axis=1) \
                 if len(live) else np.zeros((0, 5), np.int64)
-            i = 0
-            n = len(lops)
-            while i < n:
-                # 16-aligned base: bf16 sublane tiling requires the dynamic
-                # window start be a provable multiple of 16 (pl.multiple_of)
-                base = int(lops[i, 0]) & ~15
-                j = min(i + 128, n)
-                # shrink until the window fits (rows are sorted)
-                while lops[j - 1, 0] - base > 127:
-                    j -= 1
+            for base, i, j in window_chunks(lops[:, 0]):
                 quads.append((base, lops[i:j]))
-                if len(quads[-1][1]):
-                    maxrow = max(maxrow, base + 128)
-                i = j
-            if n == 0:
+                maxrow = max(maxrow, base + 128)
+            if len(lops) == 0:
                 quads.append((0, lops))
                 maxrow = max(maxrow, 128)
             while (len(quads) - qs_t[-1]) % quad_align:
@@ -158,7 +222,6 @@ def pack_blocks_v19(pieces_list, lit_list, totals, block: int,
         per = lane_ops_blocks(pieces_list, totals)
     NR = block // 128
     assert NR % 128 == 0, "v19 needs block >= 16384"
-    GRP = 4
     NST = NR // 128
     blocks = []
     maxq = 1
@@ -166,68 +229,13 @@ def pack_blocks_v19(pieces_list, lit_list, totals, block: int,
     for (rows, rl, s, e, tile_start) in per:
         quads = []          # (base, src[], tgt[], ctl[n,K,3])
         qs_t = [0]
-        nts = len(tile_start) - 1
         for st in range(NST):
-            parts = []
-            for g in range(GRP):
-                t = st * GRP + g
-                if t >= nts:
-                    break
-                b0, b1 = tile_start[t], tile_start[t + 1]
-                if b1 <= b0:
-                    continue
-                er = rows[b0:b1].reshape(-1)
-                es = s[b0:b1].reshape(-1)
-                ee = e[b0:b1].reshape(-1)
-                erl = rl[b0:b1].reshape(-1)
-                live = np.nonzero(ee > es)[0]
-                if not len(live):
-                    continue
-                tgt = (live & 31) + 32 * g
-                parts.append(np.stack(
-                    [er[live], tgt, erl[live], es[live], ee[live] - 1],
-                    axis=1))
-            if parts:
-                ops = np.concatenate(parts, axis=0)
-                key = ops[:, 0] * 128 + ops[:, 1]
-                order = np.argsort(key, kind="stable")
-                ops = ops[order]
-                ks = key[order]
-                new = np.r_[True, ks[1:] != ks[:-1]]
-                gid = np.cumsum(new) - 1
-                gstart = np.flatnonzero(new)
-                within = np.arange(len(ks)) - gstart[gid]
-                gsizes = np.diff(np.r_[gstart, len(ks)])
-                spg = -(-gsizes // K)
-                sbase = np.r_[0, np.cumsum(spg)[:-1]]
-                slot_of = sbase[gid] + within // K
-                sub_of = within % K
-                n_slots = int(spg.sum())
-                ssrc = np.zeros(n_slots, np.int64)
-                stgt = np.zeros(n_slots, np.int64)
-                sctl = np.zeros((n_slots, K, 3), np.int64)
-                sctl[:, :, 1] = 1          # empty sub-op: s=1 > e-1=0
-                ssrc[slot_of] = ops[:, 0]
-                stgt[slot_of] = ops[:, 1]
-                sctl[slot_of, sub_of, 0] = ops[:, 2]
-                sctl[slot_of, sub_of, 1] = ops[:, 3]
-                sctl[slot_of, sub_of, 2] = ops[:, 4]
-            else:
-                n_slots = 0
-                ssrc = np.zeros(0, np.int64)
-                stgt = np.zeros(0, np.int64)
-                sctl = np.zeros((0, K, 3), np.int64)
-            i = 0
-            n = n_slots
-            while i < n:
-                base = int(ssrc[i]) & ~15
-                j = min(i + 128, n)
-                while ssrc[j - 1] - base > 127:
-                    j -= 1
+            ssrc, stgt, sctl, _ = group_slots(
+                supertile_ops(rows, rl, s, e, tile_start, st), K)
+            for base, i, j in window_chunks(ssrc):
                 quads.append((base, ssrc[i:j], stgt[i:j], sctl[i:j]))
                 maxrow = max(maxrow, base + 128)
-                i = j
-            if n == 0:
+            if len(ssrc) == 0:
                 quads.append((0, ssrc, stgt, sctl))
                 maxrow = max(maxrow, 128)
             while (len(quads) - qs_t[-1]) % quad_align:
