@@ -6,11 +6,12 @@
 Phases, in order; any failure exits non-zero before the result line:
 
 1. the card's name and power limit (nvidia-smi); build the native host
-   runtime (g++), the copy-engine kernels v19/v26/v27/v13 and the attic's
-   quad-tile modes (``csrc/copy_engine.cu``, nvcc, sm_90a), the encoder's
-   kernels
-   lcp/parse_walk (``csrc/encode.cu``) and the attic's piece-serial,
-   window-merge and lane-sum kernels (``csrc/attic.cu``) in parallel;
+   runtime (g++), the copy-engine kernels v19/v25/v26/v27/v13, the attic's
+   quad-tile modes and v12's probe ablations (``csrc/copy_engine.cu``,
+   nvcc, sm_90a), the encoder's kernels lcp/parse_walk
+   (``csrc/encode.cu``), the attic's piece-serial, window-merge and
+   lane-sum kernels with the lane-sum probes (``csrc/attic.cu``) and the
+   gather probes (``csrc/gather.cu``) in parallel;
 2. the pinned 32 MiB corpus (tools/gen_corpus.py, sha256 checked against
    tools/corpus_manifest.json), encoded by the port's native encoder at
    level 3 with 64 KiB blocks (512 blocks, 32 dispatch groups of 16), with
@@ -25,7 +26,13 @@ Phases, in order; any failure exits non-zero before the result line:
    it; the window merge in modes v4-v7 and the lane sum in modes v9-v11:
    the same blocks as ``attic.decode_blocks_v4/v9/v10/v11`` pack them;
    ``copy_engine.quad`` in modes v12, v14-v17, v20, v21, v23 and v24: the
-   same blocks as ``attic_quad.decode_blocks_vN`` packs them;
+   same blocks as ``attic_quad.decode_blocks_vN`` packs them; v25: the
+   same blocks resolved with ``self_ref=True`` as
+   ``serial.decode_blocks_v25`` packs them; the probes of ``tools/`` in
+   every mode their ``main()`` runs (``probes.v13_bisect``,
+   ``v12_ablate2`` on v12's packing, ``v10_probe``, ``v12_ablate`` on
+   v10's) on the same blocks, and the gathers at the probes' largest
+   shapes, beside ``torch.gather`` / ``torch.index_select``;
    lcp and parse_walk: the first 16 blocks of the corpus at level 3 as
    ``ops/encode.py`` feeds them): equal output, the kernel's median time
    over CUDA-event-timed launches, the plain version's time and the bytes
@@ -57,7 +64,12 @@ Phases, in order; any failure exits non-zero before the result line:
    and the quad-tile entries ``attic_quad.decode_blocks_v15`` and ``v21``
    over the 64 KiB archive and ``v12``, ``v14``, ``v16``, ``v17``, ``v20``,
    ``v22``, ``v23`` and ``v24`` over its first 4 MiB (``quad`` once per
-   group), on one shared section parse and resolve; the device encode
+   group), on one shared section parse and resolve; ``v25`` through
+   ``serial.decode_blocks_v25`` over the 64 KiB archive on the same parse
+   and its own resolve (``self_ref=True``); each probe in each of its
+   modes over the first 4 MiB (a launch a group and mode; the full modes
+   equal to the corpus, the ablated ones to their plain versions) and the
+   gathers at the probes' own shapes; the device encode
    ``ops.compress_device`` of the corpus at level 3 with 64 KiB blocks
    (lcp and parse_walk once per group of 16 blocks). Fingerprint forms
    must equal the fingerprints computed on the host; the device encode's
@@ -120,6 +132,22 @@ QUAD_REPLACES = {12: "tools/kernel_attic.py:1224",
                  23: "tools/kernel_attic.py:2356",
                  24: "tools/kernel_attic.py:2771"}
 HEAD_BLOCKS = 64              # the first 4 MiB at 64 KiB blocks
+V25_REPLACES = "zxc_tpu/ops/pallas_decode.py:780"
+# the probes of tools/: (source, pallas_call site)
+PROBES = {"v13_bisect": ("copy_engine", "tools/tpu_v13_bisect.py:118"),
+          "v12_ablate2": ("copy_engine", "tools/tpu_v12_ablate2.py:124"),
+          "v10_probe": ("attic", "tools/tpu_v10_probe.py:119"),
+          "v12_ablate": ("attic", "tools/tpu_v12_ablate.py:123"),
+          "gather_axis1": ("gather", "tools/tpu_pallas_gather_probe.py:44"),
+          "gather_grid": ("gather", "tools/tpu_pallas_gather_probe.py:59"),
+          "dma_a": ("gather", "tools/tpu_indirect_dma_probe.py:56"),
+          "dma_b": ("gather", "tools/tpu_indirect_dma_probe.py:76"),
+          "dma_c": ("gather", "tools/tpu_indirect_dma_probe.py:111")}
+# tpu_pallas_gather_probe.main()'s shapes: (M, N) i32, then (8, 64K) u8
+GATHER_SHAPES = ((8, 1 << 13), (8, 1 << 16), (8, 1 << 19), (64, 1 << 16),
+                 (256, 1 << 13))
+GRID_SHAPE = (8, 1 << 16, 1 << 19, 1 << 13)     # M, N, index columns, tile
+DMA_SHAPE = (4096, 128, 1024)                   # R, C, G
 REPLACES = {19: "zxc_tpu/ops/pallas_decode.py:1306",
             26: "zxc_tpu/ops/pallas_decode.py:1038",
             27: "zxc_tpu/ops/pallas_decode.py:1188",
@@ -200,8 +228,9 @@ def host_fingerprint(data: bytes, block: int) -> tuple[int, int]:
 
 
 def kernel_families():
-    from zxc_tpu_torch.ops import attic, copy_engine, encode_kernels
-    return (copy_engine.KERNELS, encode_kernels.KERNELS, attic.KERNELS)
+    from zxc_tpu_torch.ops import attic, copy_engine, encode_kernels, probes
+    return (copy_engine.KERNELS, encode_kernels.KERNELS, attic.KERNELS,
+            probes.KERNELS)
 
 
 def zero_counts() -> None:
@@ -216,11 +245,12 @@ def read_counts() -> dict:
 
 
 def kernel_row(name, source, replaces, kern, ref, nbytes, shape,
-               diff=None, first_group=None):
+               diff=None, first_group=None, library=None):
     """A kernel against its plain version on one group: equal outputs
     (``diff`` gives the max abs error; by default of one tensor) and, with
     ``first_group``, bytes equal to the corpus; kernel and plain times;
-    bound. Returns the row."""
+    bound; with ``library``, the time of the one PyTorch call that
+    computes the same function. Returns the row."""
     out, plain = kern(), ref()
     torch.cuda.synchronize()
     err = (diff(out, plain) if diff else
@@ -233,15 +263,35 @@ def kernel_row(name, source, replaces, kern, ref, nbytes, shape,
     ms = cuda_ms(kern, reps=50)
     plain_ms = cuda_ms(ref, reps=5, warm=1)
     dev_ms = device_ms(kern)
+    lib_ms = cuda_ms(library, reps=50) if library else None
     row = {"name": name, "route": "cuda", "source": source,
            "replaces": replaces, "launches": None,
            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
-           "library_ms": None}
+           "library_ms": lib_ms, "b2b_ms": dev_ms}
+    lib = ""
+    if library:
+        row["library_b2b_ms"] = device_ms(library)
+        lib = (f", library {lib_ms:.4f} ms ({row['library_b2b_ms']:.4f} "
+               "back to back)")
     print(f"kernel {name}: {shape}, {nbytes} bytes to move; {ms:.4f} ms "
-          f"(median of 50) vs plain {plain_ms:.2f} ms, bound "
+          f"(median of 50) vs plain {plain_ms:.2f} ms{lib}, bound "
           f"{row['bound_ms']:.6f} ms; {dev_ms:.4f} ms a call back to back "
           "(20 queued behind a spin); equal", flush=True)
+    return row
+
+
+def modes_row(name, source, replaces, modes, row_of):
+    """One kernel row for a probe run in several modes: ``row_of(mode)``
+    gives each mode's ``kernel_row``; the first mode's numbers stand in
+    the row, every mode's under ``modes``."""
+    rows = {str(m): row_of(m) for m in modes}
+    row = dict(next(iter(rows.values())), name=name, source=source,
+               replaces=replaces)
+    row["max_abs_err"] = max(r["max_abs_err"] for r in rows.values())
+    row["modes"] = {m: {k: r[k] for k in ("ms", "b2b_ms", "plain_ms",
+                                          "bound_ms")}
+                    for m, r in rows.items()}
     return row
 
 
@@ -405,6 +455,156 @@ def quad_rows(CE, Q, pieces, lits, totals, data) -> dict:
     return out
 
 
+def probe_source(name: str) -> str:
+    return f"zxc_tpu_torch/csrc/{PROBES[name][0]}.cu"
+
+
+def probe_rows(CE, AT, P, S, pieces, lits, totals, data) -> dict:
+    """The decode probes of ``tools/`` in every mode their ``main()`` runs,
+    each against its plain version on one dispatch group packed as the
+    probe packs it (v12's packing with quad_align 2 for v13_bisect and 1
+    for v12_ablate2; v10's for the lane probes); the full modes' bytes
+    equal the corpus."""
+    fg = group_bytes_equal(data, totals, BLOCK, len(pieces))
+    out = {}
+    for name, qa, modes in (("v13_bisect", 2, P.V13_BISECT_MODES),
+                            ("v12_ablate2", 1, P.V12_ABLATE2_MODES)):
+        host = S.pack_blocks_v12(pieces, lits, totals, BLOCK, quad_align=qa)
+        args = CE.group_from_numpy(*host, device="cuda")
+        shape = (f"v12 packing (quad_align={qa}), "
+                 f"{int(host[0][:, -1].sum())} quads, MAXQ="
+                 f"{host[1].shape[1]} RLP={host[4].shape[1]}")
+        if name == "v13_bisect":
+            def one(m, host=host, args=args, shape=shape):
+                return kernel_row(
+                    f"v13_bisect {m}", probe_source(name), PROBES[name][1],
+                    lambda: P.v13_bisect(*args, *m),
+                    lambda: P.v13_bisect_reference(*args, *m),
+                    CE.bytes_moved(*host, K=1, rows=CE.V13_ROWS) if m[1]
+                    else CE.bytes_moved(*host, mode=12), shape,
+                    first_group=fg)
+        else:
+            def one(m, host=host, args=args, shape=shape):
+                return kernel_row(
+                    f"v12_ablate2 {m}", probe_source(name), PROBES[name][1],
+                    lambda: P.v12_ablate2(*args, m),
+                    lambda: P.v12_ablate2_reference(*args, m),
+                    CE.bytes_moved(*host, mode=12,
+                                   ablate=None if m == "full" else m),
+                    shape, first_group=fg if m == "full" else None)
+        out[name] = modes_row(name, probe_source(name), PROBES[name][1],
+                              modes, one)
+    nb, ts, pctrl, lit8 = AT.pack_blocks_v10(pieces, lits, totals, BLOCK)
+    args = [torch.from_numpy(a).cuda() for a in (ts, pctrl, lit8)]
+    for name, modes in (("v10_probe", P.V10_PROBE_MODES),
+                        ("v12_ablate", P.V12_ABLATE_MODES)):
+        def one(m, name=name):
+            return kernel_row(
+                f"{name} {m}", probe_source(name), PROBES[name][1],
+                lambda: P.KERNELS[name](*args, m),
+                lambda: P.lane_probe_reference(name, *args, m),
+                AT.bytes_moved_lane(pctrl, lits, BLOCK, 10, ts, nb,
+                                    probe=P.lane_probe_kind(name, m, lit8)),
+                f"v10 packing, {int(nb.sum())} batches, G32="
+                f"{pctrl.shape[1]} RLP={lit8.shape[1]}",
+                first_group=fg if m == "full" else None)
+        out[name] = modes_row(name, probe_source(name), PROBES[name][1],
+                              modes, one)
+    return out
+
+
+def gather_inputs(seed: int, M: int, N: int, NI: int, dtype=np.int32):
+    rng = np.random.default_rng(seed)
+    hi = 256 if dtype == np.uint8 else 100
+    x = torch.from_numpy(rng.integers(0, hi, (M, N)).astype(dtype)).cuda()
+    idx = torch.from_numpy(rng.integers(0, N, (M, NI)).astype(
+        np.int32)).cuda()
+    return x, idx
+
+
+def dma_inputs():
+    R, C, G = DMA_SHAPE
+    rng = np.random.default_rng(0)
+    table = torch.from_numpy(rng.integers(0, 256, (R, C)).astype(
+        np.int32)).cuda()
+    idx = torch.from_numpy(rng.integers(0, R, (G,)).astype(np.int32)).cuda()
+    return table, idx
+
+
+def gather_rows_of(P) -> dict:
+    """The gathers against their plain versions at the probes' largest
+    shapes, beside the PyTorch call for the same function (an int64 index
+    made beforehand)."""
+    out = {}
+    M, N = GATHER_SHAPES[2]
+    x, idx = gather_inputs(0, M, N, N)
+    idx64 = idx.long()
+    out["gather_axis1"] = kernel_row(
+        "gather_axis1", probe_source("gather_axis1"),
+        PROBES["gather_axis1"][1], lambda: P.gather_axis1(x, idx),
+        lambda: P.gather_axis1_reference(x, idx),
+        P.gather_bytes_moved(x, idx), f"x ({M}, {N}) int32, idx ({M}, {N})",
+        library=lambda: torch.gather(x, 1, idx64))
+    M, N, NI, T = GRID_SHAPE
+    x, idx = gather_inputs(1, M, N, NI)
+    idx64 = idx.long()
+    out["gather_grid"] = kernel_row(
+        "gather_grid", probe_source("gather_grid"),
+        PROBES["gather_grid"][1], lambda: P.gather_grid(x, idx, T),
+        lambda: P.gather_axis1_reference(x, idx),
+        P.gather_bytes_moved(x, idx),
+        f"x ({M}, {N}) int32, idx ({M}, {NI}), tile {T}",
+        library=lambda: torch.gather(x, 1, idx64))
+    table, idx = dma_inputs()
+    idx64 = idx.long()
+    for name, fn in (("dma_a", P.dma_a), ("dma_b", P.dma_b),
+                     ("dma_c", P.dma_c)):
+        out[name] = kernel_row(
+            name, probe_source(name), PROBES[name][1],
+            lambda fn=fn: fn(table, idx),
+            lambda: P.gather_rows_reference(table, idx),
+            P.rows_bytes_moved(table, idx),
+            f"table {tuple(table.shape)} int32, idx ({len(idx)},)",
+            library=lambda: torch.index_select(table, 0, idx64))
+    return out
+
+
+def run_probe(name, groups, modes, call, ref, decodes, want_bytes,
+              totals) -> int:
+    """One probe in each mode over ``groups`` (tensors on the card), with
+    every launch counter set to 0 before and read after: a launch a group
+    and mode, none of any other kernel; a mode that ``decodes`` gives the
+    corpus's bytes, the others equal their plain versions. Returns the
+    launches."""
+    zero_counts()
+    t0 = time.perf_counter()
+    for m in modes:
+        outs = []
+        for g in groups:
+            got = call(g, m)
+            if decodes(m):
+                outs.append(got.cpu().numpy().reshape(got.shape[0], -1))
+            else:
+                check(torch.equal(got, ref(g, m)), f"{name} {m}: the kernel "
+                      "differs from its plain version")
+        if decodes(m):
+            host = np.concatenate(outs)
+            dec = b"".join(host[j, :t].tobytes() for j, t in
+                           enumerate(totals))
+            check(dec == want_bytes, f"{name} {m}: output differs from the "
+                  "corpus")
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    n = len(groups) * len(modes)
+    want = {k: (n if k == name else 0) for k in counts}
+    check(counts == want, f"{name}: launches {counts}, expected {want}")
+    print(f"probe {name}: {len(modes)} modes x {len(groups)} groups, "
+          f"launches {counts[name]}, {wall:.4f} s with the checks; full "
+          "modes equal the corpus, ablated modes their plain versions",
+          flush=True)
+    return counts[name]
+
+
 def fmt_phases(ph: dict) -> str:
     return ", ".join(f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
                      for k, v in ph.items()) or "not recorded"
@@ -470,6 +670,7 @@ def main() -> None:
     from zxc_tpu_torch.ops import device_pipeline as DP
     from zxc_tpu_torch.ops import batch as BT, hints as H, serial as S
     from zxc_tpu_torch.ops import attic as AT, attic_quad as AQ
+    from zxc_tpu_torch.ops import probes as P
     from zxc_tpu_torch.codec.seekable import Seekable
     from gen_corpus import gen_corpus
 
@@ -480,13 +681,15 @@ def main() -> None:
 
     # -- 1. builds, in parallel ------------------------------------------
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(4) as ex:
+    with ThreadPoolExecutor(5) as ex:
         for f in [ex.submit(fn) for fn in (runtime.lib, _build.kernels,
                                            _build.encode_kernels,
-                                           _build.attic_kernels)]:
+                                           _build.attic_kernels,
+                                           _build.gather_kernels)]:
             f.result()
     print(f"build: {time.perf_counter() - t0:.2f} s (libzxchost, "
-          f"copy_engine.cu, encode.cu and attic.cu in parallel)", flush=True)
+          f"copy_engine.cu, encode.cu, attic.cu and gather.cu in parallel)",
+          flush=True)
     for ln in "".join(_build.build_logs.values()).splitlines():
         if "registers" in ln or "spill" in ln or "Compiling" in ln:
             print(f"  ptxas: {ln.strip()}")
@@ -563,16 +766,17 @@ def main() -> None:
                        loff=host_args[2], RLP=pipe.RLP),
         f"RLP={pipe.RLP} ROWS_TOT={pipe.rows_tot} (flat)",
         first_group=group_bytes_equal(data, buf.totals, BLOCK, DISPATCH))
-    def first_group_plan(a):
+    def first_group_plan(a, self_ref=False):
         """The first DISPATCH blocks of archive ``a``, resolved as the
-        serial route resolves them: (totals, pieces, lits)."""
+        serial route (or, ``self_ref``, v25) resolves them: (totals,
+        pieces, lits)."""
         plan = BT.plan_frame(a)
         first = slice(0, DISPATCH)
         sub = BT.FramePlan(plan.block_size, ll=plan.ll[first],
                            ml=plan.ml[first], off=plan.off[first],
                            lit=plan.lit[first], totals=plan.totals[first],
                            dict_buf=plan.dict_buf)
-        return (sub.totals,) + BT.resolve_serial(sub)
+        return (sub.totals,) + BT.resolve_serial(sub, self_ref=self_ref)
 
     totals4, pieces, lits = first_group_plan(arc4)
     (group,) = S.pack_groups(pieces, lits, totals4, SMALL_BLOCK, True,
@@ -601,6 +805,20 @@ def main() -> None:
         rows[f"v{v}"] = r
     for v, r in quad_rows(CE, AQ, pieces, lits, totals64, data).items():
         rows[f"v{v}"] = r
+    rows.update(probe_rows(CE, AT, P, S, pieces, lits, totals64, data))
+    _, pieces_sr, lits_sr = first_group_plan(arc, self_ref=True)
+    host = S.pack_blocks_v25(pieces_sr, lits_sr, totals64, BLOCK)
+    args = CE.group_from_numpy(*host, device="cuda")
+    rows[25] = kernel_row(
+        "v25", SOURCE, V25_REPLACES, lambda: CE.v25(*args),
+        lambda: CE.v25_reference(*args),
+        CE.bytes_moved(*host),
+        f"{int(host[0][:, -1].sum())} quads "
+        f"({int((host[1] >= CE.OUT_QB_FLAG).sum())} OUT), MAXQ="
+        f"{host[1].shape[1]} RLP={host[4].shape[1]}",
+        first_group=group_bytes_equal(data, totals64, BLOCK, DISPATCH))
+    del args
+    rows.update(gather_rows_of(P))
 
     params = frame.level_params(ENC_LEVEL)
     grp = torch.from_numpy(np.frombuffer(data, np.uint8, DISPATCH * BLOCK)
@@ -739,6 +957,79 @@ def main() -> None:
                      attic_path(AQ.ENTRIES[v], HEAD_BLOCKS), head, reps=1)
         if v != 22:
             rows[f"v{v}"]["launches"] = n
+    # v25 on the shared section parse and its own resolve (self_ref)
+    t0 = time.perf_counter()
+    pieces_sr, lits_sr = BT.resolve_serial(plan64, self_ref=True)
+    shared_sr = {"plan (shared)": t_plan,
+                 "resolve self_ref": time.perf_counter() - t0}
+
+    def v25_path(ph):
+        ph.update(shared_sr)
+        return b"".join(S.decode_blocks_v25(pieces_sr, lits_sr, T64, BLOCK,
+                                            dispatch=DISPATCH, _phases=ph))
+
+    rows[25]["launches"] = run_path("serial v25 (64 KiB blocks)", 25,
+                                    n_groups, v25_path, data)
+    # the probes over the first 4 MiB, packed as each probe packs them
+    heads = [slice(g, g + DISPATCH) for g in range(0, HEAD_BLOCKS, DISPATCH)]
+    T_head = T64[:HEAD_BLOCKS]
+    for name, qa, modes in (("v13_bisect", 2, P.V13_BISECT_MODES),
+                            ("v12_ablate2", 1, P.V12_ABLATE2_MODES)):
+        groups = [CE.group_from_numpy(*S.pack_blocks_v12(
+            pieces64[sl], lits64[sl], T64[sl], BLOCK, quad_align=qa),
+            device="cuda") for sl in heads]
+        if name == "v13_bisect":
+            call = lambda g, m: P.v13_bisect(*g, *m)
+            ref = lambda g, m: P.v13_bisect_reference(*g, *m)
+            decodes = lambda m: True
+        else:
+            call = lambda g, m: P.v12_ablate2(*g, m)
+            ref = lambda g, m: P.v12_ablate2_reference(*g, m)
+            decodes = lambda m: m == "full"
+        rows[name]["launches"] = run_probe(name, groups, modes, call, ref,
+                                           decodes, head, T_head)
+    lane_groups = [[torch.from_numpy(a).cuda() for a in AT.pack_blocks_v10(
+        pieces64[sl], lits64[sl], T64[sl], BLOCK)[1:]] for sl in heads]
+    for name, modes in (("v10_probe", P.V10_PROBE_MODES),
+                        ("v12_ablate", P.V12_ABLATE_MODES)):
+        rows[name]["launches"] = run_probe(
+            name, lane_groups, modes,
+            lambda g, m, name=name: P.KERNELS[name](*g, m),
+            lambda g, m, name=name: P.lane_probe_reference(name, *g, m),
+            lambda m: m == "full", head, T_head)
+    # the gathers at tpu_pallas_gather_probe.main()'s and
+    # tpu_indirect_dma_probe.main()'s shapes
+    zero_counts()
+    t0 = time.perf_counter()
+    runs = [gather_inputs(2 + k, M, N, N)
+            for k, (M, N) in enumerate(GATHER_SHAPES)]
+    runs.append(gather_inputs(9, 8, 1 << 16, 1 << 16, np.uint8))
+    for x, idx in runs:
+        check(torch.equal(P.gather_axis1(x, idx),
+                          P.gather_axis1_reference(x, idx)),
+              f"gather_axis1 {tuple(x.shape)} {x.dtype} differs from its "
+              "plain version")
+    M, N, NI, T = GRID_SHAPE
+    x, idx = gather_inputs(1, M, N, NI)
+    check(torch.equal(P.gather_grid(x, idx, T),
+                      P.gather_axis1_reference(x, idx)),
+          "gather_grid differs from its plain version")
+    table, idx = dma_inputs()
+    for fn in (P.dma_a, P.dma_b, P.dma_c):
+        check(torch.equal(fn(table, idx), P.gather_rows_reference(
+            table, idx)), f"{fn.__name__} differs from its plain version")
+    counts = read_counts()
+    want = {k: 0 for k in counts}
+    want.update(gather_axis1=len(runs), gather_grid=1, dma_a=1, dma_b=1,
+                dma_c=1)
+    check(counts == want, f"gathers: launches {counts}, expected {want}")
+    for name in ("gather_axis1", "gather_grid", "dma_a", "dma_b", "dma_c"):
+        rows[name]["launches"] = counts[name]
+    print(f"gathers at the probes' shapes: launches "
+          f"{ {k: v for k, v in counts.items() if v} }, "
+          f"{time.perf_counter() - t0:.4f} s with the checks; each equals "
+          "its plain version", flush=True)
+    del runs, x, idx, table, lane_groups, groups
     counts, arc_d = run_compress(
         EK, n_groups,
         lambda ph: Z.ops.compress_device(data, level=ENC_LEVEL,
@@ -821,8 +1112,9 @@ def main() -> None:
                + [enc_rows[k] for k in ("lcp", "parse_walk")]
                + [rows[k] for k in ("attic", "v4", "v5", "v6", "v7", "v9",
                                     "v10", "v11")]
-               + [rows[f"v{v}"] for v in QUAD_REPLACES])
-    check(len(kernels) == 23 and all(r["launches"] for r in kernels),
+               + [rows[f"v{v}"] for v in QUAD_REPLACES]
+               + [rows[25]] + [rows[k] for k in PROBES])
+    check(len(kernels) == 33 and all(r["launches"] for r in kernels),
           f"kernel rows without launches: {kernels}")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -1,10 +1,12 @@
-"""Card tests of the PyTorch port: each CUDA kernel (v19, v26, v27, v13,
-the attic's quad-tile generations as ``quad`` in modes 12, 14-17, 20, 21,
-23 and 24, lcp, parse_walk, the attic's piece-serial kernel, window merge
-and lane sum) against its plain PyTorch version on the card, on valid and
-on garbage control, misaligned or non-contiguous operands refused, and
-the cold, hint, serial and attic decodes (``attic_quad``'s ten entries
-included), the default expansion route (no hand-written kernel),
+"""Card tests of the PyTorch port: each CUDA kernel (v19, v25, v26, v27,
+v13, the attic's quad-tile generations as ``quad`` in modes 12, 14-17, 20,
+21, 23 and 24, lcp, parse_walk, the attic's piece-serial kernel, window
+merge and lane sum, and the probes of ``tools/``: v12's quad ablations,
+the lane-sum probes and the gathers) against its plain PyTorch version on
+the card, on valid and on garbage control, misaligned or non-contiguous
+operands refused, and the cold, hint, serial, v25 and attic decodes
+(``attic_quad``'s ten entries included), the default expansion route (no
+hand-written kernel),
 ``Seekable.decompress_range_device`` and the device encode against the
 CPU path. They need an NVIDIA card with
 nvcc, are marked ``cuda`` and skip without one. On the card:
@@ -630,3 +632,129 @@ def test_decompress_range_device_on_card(card):
             sek.decompress_range_device(off, length, device="cpu",
                                         batch=4) == data[off:off + length]
     assert _all_launches() == before
+
+
+def v25_group(seed: int, B: int, NST: int, MAXQ: int, RLP: int,
+              garbage: bool = False):
+    """A v19-layout group for v25: about a third of the quads carry
+    ``OUT_QB_FLAG`` (valid: a 16-aligned output row at most NR - 128, as
+    the packer clamps it; ``garbage``: any row, negative and past NR
+    included), so slots read rows of earlier, current and later
+    supertiles."""
+    qs, qbase, pctrl, tq, lit8 = random_group(seed, B, NST, MAXQ, RLP, 2,
+                                              False, garbage=garbage)
+    rng = np.random.default_rng(seed + 100)
+    NR = NST * 128
+    out_q = rng.random(qbase.shape) < 0.35
+    if garbage:
+        rows = rng.integers(-64, NR + 300, qbase.shape)
+    else:
+        rows = rng.integers(0, (NR - 128) // 16 + 1, qbase.shape) * 16
+    qbase = np.where(out_q, CE.OUT_QB_FLAG + rows, qbase).astype(np.int32)
+    return qs, qbase, pctrl, tq, lit8
+
+
+@pytest.mark.parametrize("garbage", [False, True])
+def test_v25_equals_plain_version_on_card(card, garbage):
+    for seed, (B, NST, MAXQ, RLP) in enumerate(((3, 2, 24, 256),
+                                                (16, 4, 96, 640))):
+        host = v25_group(seed, B, NST, MAXQ, RLP, garbage)
+        assert (host[1] >= CE.OUT_QB_FLAG).any()
+        args = CE.group_from_numpy(*host, device=card)
+        before = CE.v25.launches
+        out = CE.v25(*args)
+        torch.cuda.synchronize()
+        assert CE.v25.launches == before + 1
+        assert torch.equal(out, CE.v25_reference(*args))
+
+
+def test_v25_path_on_card(card):
+    import os
+    import sys
+    from zxc_tpu_torch import runtime as prt
+    from zxc_tpu_torch.ops import batch as BT, serial as S
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "tools"))
+    from gen_corpus import gen_corpus
+    data = gen_corpus(1 << 20)
+    arc = Z.compress(data, Z.EncodeOpts(level=3, block_size=65536))
+    plan = BT.plan_frame(arc)
+    pieces, lits = BT.resolve_serial(plan, self_ref=True)
+    assert any((p[3] == prt.KOUT).any() for p in pieces)
+    before = _all_launches()
+    q0 = CE.v25.launches
+    assert b"".join(S.decode_blocks_v25(pieces, lits, plan.totals, 65536,
+                                        dispatch=4)) == data
+    n = -(-plan.n_blocks // 4)
+    assert (CE.v25.launches - q0, _all_launches() - before) == (n, n)
+    assert S.decode_blocks_v25(pieces, lits, plan.totals, 65536, dispatch=4,
+                               device="cpu") == S.decode_blocks_v25(
+        pieces, lits, plan.totals, 65536, dispatch=4, device=card)
+
+
+@pytest.mark.parametrize("garbage", [False, True])
+@pytest.mark.parametrize("mode", ["full", "nopt", "statwin", "nomm",
+                                  "mmonly"])
+def test_quad_ablations_equal_plain_version_on_card(card, mode, garbage):
+    from zxc_tpu_torch.ops import probes as P
+    for seed, (B, NT, MAXQ, RLP) in enumerate(((3, 8, 24, 256),
+                                               (16, 16, 96, 640))):
+        args = CE.group_from_numpy(*quad_plan(seed, B, NT, MAXQ, RLP, 12,
+                                              garbage), device=card)
+        before = P.v12_ablate2.launches
+        out = P.v12_ablate2(*args, mode)
+        torch.cuda.synchronize()
+        assert P.v12_ablate2.launches == before + 1
+        assert torch.equal(out, P.v12_ablate2_reference(*args, mode))
+        for shifted, paired in P.V13_BISECT_MODES:
+            assert torch.equal(P.v13_bisect(*args, shifted, paired),
+                               P.v13_bisect_reference(*args, shifted, paired))
+
+
+@pytest.mark.parametrize("garbage", [False, True])
+@pytest.mark.parametrize("name,mode", [
+    ("v10_probe", m) for m in ("full", "norotate", "nobcast", "noonehot",
+                               "nomatmul")] + [
+    ("v12_ablate", m) for m in ("nomatmul", "norotate", "nomask", "floor")])
+def test_lane_probes_equal_plain_version_on_card(card, name, mode, garbage):
+    from zxc_tpu_torch.ops import probes as P
+    fn = P.KERNELS[name]
+    for seed, (B, block) in enumerate(((1, 4096), (3, 8192), (16, 65536))):
+        ts, _, pctrl, lit, _ = (
+            torch.from_numpy(a).to(card) if isinstance(a, np.ndarray) else a
+            for a in lane_plan(seed, B, block, 10, garbage, RL=256))
+        before = fn.launches
+        out = fn(ts, pctrl, lit, mode)
+        torch.cuda.synchronize()
+        assert fn.launches == before + 1
+        assert torch.equal(out, P.lane_probe_reference(name, ts, pctrl, lit,
+                                                       mode))
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.uint8])
+def test_gathers_equal_plain_version_on_card(card, dtype):
+    from zxc_tpu_torch.ops import probes as P
+    rng = np.random.default_rng(4)
+    for M, N, NI in ((8, 8192, 8192), (3, 1000, 4096), (64, 65536, 65536)):
+        x = torch.from_numpy(rng.integers(0, 256, (M, N))).to(dtype).to(card)
+        # some indices outside the row: they read 0
+        idx = torch.from_numpy(rng.integers(-5, N + 5, (M, NI)).astype(
+            np.int32)).to(card)
+        before = (P.gather_axis1.launches, P.gather_grid.launches)
+        got = P.gather_axis1(x, idx)
+        grid = P.gather_grid(x, idx, 1024)
+        torch.cuda.synchronize()
+        assert (P.gather_axis1.launches, P.gather_grid.launches) == (
+            before[0] + 1, before[1] + 1)
+        want = P.gather_axis1_reference(x, idx)
+        assert torch.equal(got, want) and torch.equal(grid, want)
+    table = torch.from_numpy(rng.integers(-2**31, 2**31, (4096, 128)).astype(
+        np.int32)).to(card)
+    for G in (1, 1024, 3000):
+        idx = torch.from_numpy(rng.integers(-3, 4100, G).astype(
+            np.int32)).to(card)
+        want = P.gather_rows_reference(table, idx)
+        for form, fn in P.ROW_ENTRIES.items():
+            before = fn.launches
+            assert torch.equal(fn(table, idx), want)
+            assert fn.launches == before + 1

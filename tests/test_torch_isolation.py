@@ -13,7 +13,7 @@ import torch
 import zxc_tpu_torch as Z
 from zxc_tpu_torch import buildlib, runtime
 from zxc_tpu_torch.ops import _build, attic as AT, copy_engine as CE
-from zxc_tpu_torch.ops import attic_quad as AQ
+from zxc_tpu_torch.ops import attic_quad as AQ, probes as P
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "zxc_tpu_torch")
@@ -35,7 +35,7 @@ def test_import_leaves_jax_and_zxc_tpu_out():
             "zxc_tpu_torch.ops.encode, zxc_tpu_torch.ops.encode_kernels, "
             "zxc_tpu_torch.codec.block_encode, zxc_tpu_torch.ops.expand, "
             "zxc_tpu_torch.ops.attic, zxc_tpu_torch.ops.attic_quad, "
-            "zxc_tpu_torch.codec.seekable\n"
+            "zxc_tpu_torch.ops.probes, zxc_tpu_torch.codec.seekable\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'jaxlib')) or m == 'zxc_tpu' "
             "or m.startswith('zxc_tpu.'))\n"
@@ -133,6 +133,18 @@ def test_wrappers_refuse_other_devices():
            torch.zeros((1, 40, 128), dtype=torch.uint8, device="meta"))
     with pytest.raises(ValueError, match="cuda or cpu"):
         AT.piece_serial(*att, block=1024, fill_from_s=True)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        CE.v25(*t)
+    for shifted, paired in P.V13_BISECT_MODES:
+        with pytest.raises(ValueError, match="cuda or cpu"):
+            P.v13_bisect(*t13, shifted, paired)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        P.v12_ablate2(*t13, "nomm")
+    x = torch.zeros((2, 8), dtype=torch.int32, device="meta")
+    for call in (lambda: P.gather_axis1(x, x), lambda: P.gather_grid(x, x, 4),
+                 lambda: P.dma_b(x, x[0])):
+        with pytest.raises(ValueError, match="cuda or cpu"):
+            call()
 
 
 def test_missing_native_library_raises(tmp_path, monkeypatch):
@@ -172,6 +184,14 @@ def test_failed_attic_kernel_build_raises(tmp_path, monkeypatch):
         _build.attic_kernels()
 
 
+def test_failed_gather_kernel_build_raises(tmp_path, monkeypatch):
+    monkeypatch.setattr(_build, "_libs", {})
+    monkeypatch.setattr(buildlib, "BUILD_DIR", str(tmp_path / "build"))
+    monkeypatch.setattr(_build, "_nvcc", lambda: str(tmp_path / "no-nvcc"))
+    with pytest.raises(RuntimeError, match="building gather failed"):
+        _build.gather_kernels()
+
+
 def test_nvcc_absent_raises(monkeypatch):
     monkeypatch.setattr(_build, "_libs", {})
     monkeypatch.setattr(_build.shutil, "which", lambda name: None)
@@ -182,6 +202,8 @@ def test_nvcc_absent_raises(monkeypatch):
         _build.encode_kernels()
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.attic_kernels()
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.gather_kernels()
 
 
 def test_build_cache_rebuilds_on_source_change(tmp_path, monkeypatch):

@@ -1,5 +1,6 @@
 // The attic's decode kernels for Hopper (sm_90a): the piece-serial copy
-// engine (v1-v3), the window merge (v4-v7) and the lane sum (v9-v11).
+// engine (v1-v3), the window merge (v4-v7) and the lane sum (v9-v11, and
+// the ablations of v10's body that the probes of tools/ time).
 //
 // == Piece-serial copy engine: ops.decompress(use_serial=True,
 // variant=1|2|3).
@@ -70,7 +71,9 @@
 // == Lane sum: attic.decode_blocks_v9 / v10 / v11.
 //
 // Replaces tools/kernel_attic.py v9_kernel (pallas_call at :831), v10_kernel
-// (:989) and v11_kernel (:1102). For 4096-byte tile t of block b (32 rows of
+// (:989) and v11_kernel (:1102), and the ablations of v10's body that
+// tools/tpu_v10_probe.py (build_kernel, :119) and tools/tpu_v12_ablate.py
+// (build_kernel, :123) time. For 4096-byte tile t of block b (32 rows of
 // 128 lanes), sublane k and lane l:
 //   out[b, 32t + k, l] = low8( sum over bat of [s <= l <= e1]
 //                                              * lit[row][(l + rl) & 127] )
@@ -87,6 +90,15 @@
 // (v9, v10) or [t * layers, t * layers + 4 * floor(layers / 4)) (v11). The
 // sum is int32 and wraps; a batch outside the control (v9: or the rows)
 // adds nothing.
+//   The probes (v10's layout and walk; u = (bat - ts[b,t]) & 3, the batch's
+//   place in the body's group of 4, so slot 32u + k of the TPU body):
+//   nomatmul: lit[32u + k][(l + rl) & 127] + row, masked (needs 128 rows);
+//   noonehot: lit[32u + k][(l + rl) & 127], masked (0 past the rows);
+//   nobcast:  every slot the word (3 << 14) | (200 << 21), no control read;
+//   norotate: lit[row][l], masked; norotate_add (tpu_v12_ablate.py's
+//             norotate): lit[row][l] + rl, masked (rl alone past the rows);
+//   nomask:   lit[row][(l + rl) & 127] on every lane of every slot;
+//   floor:    the control word itself on every lane (wrapping sum).
 //
 // What bounds it: bytes are few (4 bytes of control an op slot, each
 // literal byte once, the output once: about 2.5 MB a group), and the work
@@ -186,6 +198,41 @@ __device__ __forceinline__ long long clamp_ll(long long v, long long lo,
   return v < lo ? lo : (v > hi ? hi : v);
 }
 
+// the probes' modes (kProduction: v9, v10, v11 by `mode`)
+enum LaneProbe { kProduction = 0, kNoMatmul = 1, kNoOneHot = 2, kNoBcast = 3,
+                 kNoRotate = 4, kNoRotateAdd = 5, kNoMask = 6, kFloor = 7 };
+constexpr int kBcastWord = (3 << 14) | (200 << 21);   // nobcast's slot
+
+// one slot of a lane-sum probe (v10's fields) into a thread's 4 lanes
+template <int kProbe>
+__device__ __forceinline__ void probe_add(int c, int u, int k, int l0,
+                                          const uint8_t* lb, int rl,
+                                          uint32_t* acc) {
+  const int rot = c & 127, s = (c >> 7) & 127, e1 = (c >> 14) & 127;
+  const int row = (int)((unsigned)c >> 21);
+  const bool masked = kProbe != kNoMask && kProbe != kFloor;
+  if (masked && (s > e1 || e1 < l0 || s > l0 + 3)) return;
+  const int src_row = kProbe == kNoMatmul || kProbe == kNoOneHot
+      ? 32 * u + k : row;
+  const uint8_t* src = src_row < rl ? lb + (long long)src_row * 128 : nullptr;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const int l = l0 + q;
+    if (masked && (l < s || l > e1)) continue;
+    uint32_t v;
+    if (kProbe == kFloor) {
+      v = (uint32_t)c;
+    } else {
+      const int lane =
+          kProbe == kNoRotate || kProbe == kNoRotateAdd ? l : (l + rot) & 127;
+      v = src ? src[lane] : 0u;
+      if (kProbe == kNoMatmul) v += (uint32_t)row;
+      if (kProbe == kNoRotateAdd) v += (uint32_t)rot;
+    }
+    acc[q] += v;
+  }
+}
+
 __device__ __forceinline__ uint32_t pack_low_bytes(uint32_t a, uint32_t b,
                                                    uint32_t c, uint32_t d) {
   return (a & 255u) | (b & 255u) << 8 | (c & 255u) << 16 | (d & 255u) << 24;
@@ -235,6 +282,7 @@ __global__ void __launch_bounds__(kThreads) window_merge_kernel(
       pack_low_bytes(acc[0], acc[1], acc[2], acc[3]);
 }
 
+template <int kProbe>
 __global__ void __launch_bounds__(kLaneThreads) lane_sum_kernel(
     const int32_t* __restrict__ ts, const int32_t* __restrict__ rows,
     int rows_len, const int32_t* __restrict__ pctrl, int g32,
@@ -266,14 +314,18 @@ __global__ void __launch_bounds__(kLaneThreads) lane_sum_kernel(
   for (long long c0 = lo; c0 < hi; c0 += kLaneStage) {
     const int n_st = (int)min((long long)kLaneStage, hi - c0);
     __syncthreads();   // every warp is done with the previous round
-    if (lg < n_st) {
+    if (lg < n_st && kProbe != kNoBcast) {
       const long long bat = c0 + lg;
       ctrl[k][lg] = pb[(kTileRows * (bat >> 7) + k) * 128 + (bat & 127)];
       if (mode == 9) srow[k][lg] = rb[kTileRows * bat + k];
     }
     __syncthreads();
     for (int i = 0; i < n_st; ++i) {
-      const int c = ctrl[k][i];
+      const int c = kProbe == kNoBcast ? kBcastWord : ctrl[k][i];
+      if (kProbe != kProduction) {
+        probe_add<kProbe>(c, (int)((c0 + i - b0) & 3), k, l0, lb, rl, acc);
+        continue;
+      }
       int rot, s, e1, row;
       if (mode == 9) {
         rot = c & 255;
@@ -365,11 +417,39 @@ int zxc_lane_sum(const int32_t* ts, const int32_t* rows, int rows_len,
   if (B < 0 || B > 65535 || block < 0 || block % kTile || g32 < 0 ||
       g32 % kTileRows || rl < 1 || rows_len < 0 || layers < 0)
     return (int)cudaErrorInvalidValue;
-  lane_sum_kernel<<<dim3(block / kTile, B), kLaneThreads, 0,
-                    (cudaStream_t)stream>>>(
+  lane_sum_kernel<kProduction><<<dim3(block / kTile, B), kLaneThreads, 0,
+                                 (cudaStream_t)stream>>>(
       ts, rows, rows_len, pctrl, g32, lit, mode == 9 ? 4 : 1, rl, out, block,
       mode, layers);
   return (int)cudaGetLastError();
+}
+
+// The lane-sum probes of tools/tpu_v10_probe.py and tools/tpu_v12_ablate.py
+// on v10's layout (`probe` a LaneProbe, 1-7). Checked by the Python
+// wrapper as zxc_lane_sum's mode 10; nomatmul needs rl >= 128.
+int zxc_lane_sum_probe(const int32_t* ts, const int32_t* pctrl, int g32,
+                       const uint8_t* lit, int rl, uint8_t* out, int B,
+                       int block, int probe, void* stream) {
+  if (probe < kNoMatmul || probe > kFloor) return (int)cudaErrorInvalidValue;
+  if (B == 0 || block == 0) return 0;
+  if (B < 0 || B > 65535 || block < 0 || block % kTile || g32 < 0 ||
+      g32 % kTileRows || rl < (probe == kNoMatmul ? 128 : 1))
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid(block / kTile, B);
+  const auto run = [&](auto kernel) {
+    kernel<<<grid, kLaneThreads, 0, (cudaStream_t)stream>>>(
+        ts, nullptr, 0, pctrl, g32, lit, 1, rl, out, block, 10, 0);
+    return (int)cudaGetLastError();
+  };
+  switch (probe) {
+    case kNoMatmul: return run(lane_sum_kernel<kNoMatmul>);
+    case kNoOneHot: return run(lane_sum_kernel<kNoOneHot>);
+    case kNoBcast: return run(lane_sum_kernel<kNoBcast>);
+    case kNoRotate: return run(lane_sum_kernel<kNoRotate>);
+    case kNoRotateAdd: return run(lane_sum_kernel<kNoRotateAdd>);
+    case kNoMask: return run(lane_sum_kernel<kNoMask>);
+    default: return run(lane_sum_kernel<kFloor>);
+  }
 }
 
 }  // extern "C"

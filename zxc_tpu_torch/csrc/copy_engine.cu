@@ -1,8 +1,10 @@
-// Copy-engine decode kernels for Hopper (sm_90a): v19, v26, v27, v13 and
-// the attic's quad-tile generations v12, v14-v17, v20, v21, v23, v24.
+// Copy-engine decode kernels for Hopper (sm_90a): v19, v25, v26, v27, v13,
+// the attic's quad-tile generations v12, v14-v17, v20, v21, v23, v24 and
+// the ablations of v12's quad body that tools/tpu_v12_ablate2.py times.
 //
 // Replaces the Pallas kernels of the JAX package:
 //   v19: zxc_tpu/ops/pallas_decode.py _make_kernel_v19 / v19_kernel
+//   v25: zxc_tpu/ops/pallas_decode.py _make_kernel_v25 / v25_kernel
 //   v26: zxc_tpu/ops/pallas_decode.py _make_kernel_v26 / v26_kernel
 //   v27: zxc_tpu/ops/pallas_decode.py _make_kernel_v27 / v27_kernel
 //   v13: zxc_tpu/ops/pallas_decode.py _kernel_v13 / v13_kernel
@@ -10,6 +12,10 @@
 //        _kernel_v14 / v14_kernel, ..., _kernel_v17 / v17_kernel
 //   v20, v21, v23, v24: tools/kernel_attic.py _make_kernel_v20 /
 //        v20_kernel (also the v22 packer's kernel), ..., v24_kernel
+//   tools/tpu_v12_ablate2.py make_body / build (modes nopt, statwin, nomm,
+//        mmonly; its full mode is v12) and tools/tpu_v13_bisect.py
+//        make_body / build (the same function as v12 or, paired, v13: its
+//        shifted-iota compares select the same rows, rolls and lanes)
 //
 // What they compute (the contract, not the TPU formulation). For block b
 // and tile t of kRows rows (128; 32 for v13, v12 and v14), a (kRows,128)
@@ -40,6 +46,19 @@
 //   v27: v26 whose rows < RLP are flat[loff[b] + r] (one ragged lit
 //        buffer for the whole group); a row with loff[b] < 0 or
 //        loff[b] + r >= ROWS_TOT reads 0.
+//   v25: the window is chosen per quad: lit8[b] when qbase[b,q] <
+//        OUT_QB_FLAG (1 << 24); else this block's own output, source row
+//        qbase[b,q] - OUT_QB_FLAG + (w_0 >>> 21), which reads 0 unless it
+//        lies in a supertile already stored (below t*128). The JAX kernel
+//        reads whatever its output buffer holds there (INT32_MIN in
+//        interpret mode); no packed plan reads such a row.
+// The ablations of v12 (32-row tiles, every quad, one plane, int32 tq)
+// change one step each: nopt adds slot i into tile row i & 31 (no target
+// permute); statwin reads window row (w_0 >>> 21) whatever qbase says;
+// nomm has slot i read lit8 row qbase + i (no row gather), adds the 11-bit
+// row field to each byte before the roll, and rounds each masked value to
+// bf16 (nearest even) before the sum, as the TPU body's bf16 permute does;
+// mmonly adds the gathered row unrolled and unmasked into tile row i & 31.
 // A slot whose window-relative row exceeds 127, whose source row lies
 // outside the window, whose target row lies outside the tile or whose quad
 // lies outside [0, MAXQ) contributes nothing, so no control can make the
@@ -56,12 +75,13 @@
 // rotates it with two shuffles and a funnel shift per plane; the tile
 // lives in shared memory as int32 and takes atomicAdd, so the add
 // semantics hold exactly for any control. v19, v13 and the attic modes
-// grid over (tile, block), one CTA each; v26 and v27 loop over supertiles inside one CTA with
-// __syncthreads() between them, reading earlier supertiles back from
-// global memory. v27 reads its flat rows straight from global memory
+// grid over (tile, block), one CTA each; v25, v26 and v27 loop over
+// supertiles inside one CTA with __syncthreads() between them, reading
+// earlier supertiles back from global memory. v27 reads its flat rows straight from global memory
 // (staging the window in shared memory with TMA is later work). TMA,
 // wgmma and occupancy tuning are later work.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -70,8 +90,12 @@ namespace {
 constexpr int kRowBytes = 128;
 constexpr int kThreads = 1024;
 constexpr unsigned kFull = 0xffffffffu;
+constexpr int64_t kOutQbFlag = 1 << 24;   // v25: qbase of an output quad
 
-enum Window { kLit = 0, kSelfRef = 1, kFlatSelfRef = 2 };
+// kQuadSelfRef (v25): lit8, or the block's stored output for a flagged quad
+enum Window { kLit = 0, kSelfRef = 1, kFlatSelfRef = 2, kQuadSelfRef = 3 };
+// tools/tpu_v12_ablate2.py's modes (kNone: the full body)
+enum Ablate { kNone = 0, kNoPt = 1, kStatWin = 2, kNoMM = 3, kMMOnly = 4 };
 // How a tile walks the quads of a range [q0, q1) (the JAX bodies' loops):
 // kOnes, kPairs and kFours run f * floor((q1 - q0) / f) quads from q0, none
 // when that is negative (f = 1, 2, 4); kFoursThenOnes (v14) runs
@@ -122,9 +146,14 @@ __device__ __forceinline__ size_t ctrl_index(int j, int bat, int i, int K,
   return (size_t)row * kRowBytes + (bat & 127);
 }
 
+// an integer rounded to bf16, nearest even (exact below 2^8)
+__device__ __forceinline__ int bf16_round(int v) {
+  return (int)__bfloat162float(__float2bfloat16_rn((float)v));
+}
+
 // adds the slots of quads [q_lo, q_hi), clipped to [0, MAXQ), reading
 // nplanes planes of control, into the shared tile; no barrier
-template <int kRows, int kWin, int kLayout, typename TQ>
+template <int kRows, int kWin, int kLayout, int kAblate, typename TQ>
 __device__ void add_quads(const Args<TQ>& a, int b, int t, int64_t q_lo,
                           int64_t q_hi, int nplanes, int32_t* tile) {
   const int NR = a.NT * kRows;
@@ -137,8 +166,9 @@ __device__ void add_quads(const Args<TQ>& a, int b, int t, int64_t q_lo,
   const int nwarps = blockDim.x >> 5;
   const int32_t* pc_b = a.pctrl + (size_t)b * a.K * a.G32 * kRowBytes;
   const uint8_t* out_b = a.out + (size_t)b * NR * kRowBytes;
-  const int64_t win_rows = kWin == kLit ? a.RLP : (int64_t)a.RLP + NR;
-  const int64_t stored_rows = (int64_t)t * kRows;   // v26/v27 only
+  const int64_t win_rows =
+      kWin == kLit || kWin == kQuadSelfRef ? a.RLP : (int64_t)a.RLP + NR;
+  const int64_t stored_rows = (int64_t)t * kRows;   // v25/v26/v27 only
   // v27: this block's rows of the flat buffer; an out-of-range window row
   // reads 0, which adds nothing
   int64_t lit_base = (int64_t)b * a.RLP;
@@ -157,14 +187,23 @@ __device__ void add_quads(const Args<TQ>& a, int b, int t, int64_t q_lo,
     const uint32_t w0 =
         (uint32_t)pc_b[ctrl_index<kLayout>(0, bat, i, a.K, a.G32)];
     const uint32_t rowrel = w0 >> 21;
-    const int64_t tgt = a.tq[((size_t)b * a.MAXQ + q) * kRowBytes + i];
-    const int64_t src = (int64_t)a.qbase[(size_t)b * a.MAXQ + q] + rowrel;
-    if (rowrel >= 128 || tgt < 0 || tgt >= kRows || src < 0
-        || src >= win_rows)
+    const int64_t tgt = kAblate == kNoPt || kAblate == kMMOnly
+        ? (int64_t)(i & 31)
+        : (int64_t)a.tq[((size_t)b * a.MAXQ + q) * kRowBytes + i];
+    const int64_t qb = a.qbase[(size_t)b * a.MAXQ + q];
+    // v25: a flagged quad reads the block's own output rows stored so far
+    const bool from_out = kWin == kQuadSelfRef && qb >= kOutQbFlag;
+    const int64_t src =
+        (kAblate == kStatWin ? 0 : from_out ? qb - kOutQbFlag : qb)
+        + (kAblate == kNoMM ? (int64_t)i : (int64_t)rowrel);
+    if ((kAblate != kNoMM && rowrel >= 128) || tgt < 0 || tgt >= kRows
+        || src < 0 || src >= (from_out ? stored_rows : win_rows))
       continue;
 
     uint32_t word = 0;
-    if (src < a.RLP) {
+    if (from_out) {
+      word = reinterpret_cast<const uint32_t*>(out_b + src * kRowBytes)[lane];
+    } else if (src < a.RLP) {
       const int64_t row = lit_base + src;
       if (row >= 0 && row < lit_rows)
         word = reinterpret_cast<const uint32_t*>(
@@ -176,6 +215,11 @@ __device__ void add_quads(const Args<TQ>& a, int b, int t, int64_t q_lo,
 
     uint32_t val = 0;
     unsigned cover = 0;
+    if (kAblate == kMMOnly) {   // the gathered row as it is, every lane
+      val = word;
+      cover = 0xf;
+      nplanes = 0;
+    }
     for (int j = 0; j < nplanes; ++j) {
       const uint32_t w = j == 0 ? w0
           : (uint32_t)pc_b[ctrl_index<kLayout>(j, bat, i, a.K, a.G32)];
@@ -199,7 +243,8 @@ __device__ void add_quads(const Args<TQ>& a, int b, int t, int64_t q_lo,
     int32_t* trow = tile + tgt * kRowBytes + 4 * lane;
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
-      const int v = (val >> (8 * c)) & 0xff;
+      int v = (val >> (8 * c)) & 0xff;
+      if (kAblate == kNoMM) v = bf16_round(v + (int)rowrel);
       if (((cover >> c) & 1) && v) atomicAdd(trow + c, v);
     }
   }
@@ -210,7 +255,7 @@ __device__ void add_quads(const Args<TQ>& a, int b, int t, int64_t q_lo,
 // [qs[2t+1], qs[2t+2]) with all K planes; else [qs[t], qs[t+1]) under
 // kWalk), stored mod 256.
 template <int kRows, int kWin, typename TQ, int kWalk = kPairs,
-          int kLayout = kPlaneMajor, bool kSplit = false>
+          int kLayout = kPlaneMajor, bool kSplit = false, int kAblate = kNone>
 __device__ void run_tile(const Args<TQ>& a, int b, int t, int32_t* tile) {
   const int NR = a.NT * kRows;
   for (int k = threadIdx.x; k < kRows * kRowBytes; k += blockDim.x)
@@ -221,12 +266,12 @@ __device__ void run_tile(const Args<TQ>& a, int b, int t, int32_t* tile) {
   int64_t lo, hi;
   if (kSplit) {
     quad_range<kPairs>(qs_b[2 * t], qs_b[2 * t + 1], lo, hi);
-    add_quads<kRows, kWin, kLayout>(a, b, t, lo, hi, 1, tile);
+    add_quads<kRows, kWin, kLayout, kAblate>(a, b, t, lo, hi, 1, tile);
     quad_range<kPairs>(qs_b[2 * t + 1], qs_b[2 * t + 2], lo, hi);
   } else {
     quad_range<kWalk>(qs_b[t], qs_b[t + 1], lo, hi);
   }
-  add_quads<kRows, kWin, kLayout>(a, b, t, lo, hi, a.K, tile);
+  add_quads<kRows, kWin, kLayout, kAblate>(a, b, t, lo, hi, a.K, tile);
   __syncthreads();
 
   uint32_t* dst = reinterpret_cast<uint32_t*>(
@@ -238,17 +283,17 @@ __device__ void run_tile(const Args<TQ>& a, int b, int t, int32_t* tile) {
              | ((uint32_t)(v[3] & 0xff) << 24);
   }
   // the stores must be visible to the next supertile's window reads
-  // (v26/v27), and the tile must not be cleared while still being read
+  // (v25/v26/v27), and the tile must not be cleared while still being read
   __syncthreads();
 }
 
 // one CTA per (tile, block)
 template <int kRows, typename TQ, int kWalk = kPairs,
-          int kLayout = kPlaneMajor, bool kSplit = false>
+          int kLayout = kPlaneMajor, bool kSplit = false, int kAblate = kNone>
 __global__ void __launch_bounds__(kThreads) tiled_kernel(Args<TQ> a) {
   extern __shared__ int32_t tile[];
-  run_tile<kRows, kLit, TQ, kWalk, kLayout, kSplit>(a, blockIdx.y,
-                                                    blockIdx.x, tile);
+  run_tile<kRows, kLit, TQ, kWalk, kLayout, kSplit, kAblate>(
+      a, blockIdx.y, blockIdx.x, tile);
 }
 
 // one CTA per block, supertiles in order (self-referential window)
@@ -284,6 +329,18 @@ int zxc_copy_engine_v19(const int32_t* qs, const int32_t* qbase,
   Args<uint8_t> a{qs, qbase, nullptr, pctrl, tq, lit8, out,
                   NST, NST + 1, MAXQ, G32, K, RLP, 0};
   return launch(tiled_kernel<128, uint8_t>, dim3(NST, B), 128, a, stream);
+}
+
+// v25: v26's schedule (one CTA a block, supertiles in order) with the
+// window chosen per quad by qbase's OUT_QB_FLAG
+int zxc_copy_engine_v25(const int32_t* qs, const int32_t* qbase,
+                        const int32_t* pctrl, const uint8_t* tq,
+                        const uint8_t* lit8, uint8_t* out, int B, int NST,
+                        int MAXQ, int G32, int K, int RLP, void* stream) {
+  if (B == 0 || NST == 0) return 0;
+  Args<uint8_t> a{qs, qbase, nullptr, pctrl, tq, lit8, out,
+                  NST, NST + 1, MAXQ, G32, K, RLP, 0};
+  return launch(self_ref_kernel<kQuadSelfRef>, dim3(B), 128, a, stream);
 }
 
 int zxc_copy_engine_v26(const int32_t* qs, const int32_t* qbase,
@@ -357,6 +414,35 @@ int zxc_copy_engine_quad(const int32_t* qs, const int32_t* qbase,
     case 23:
       return launch(tiled_kernel<128, uint8_t, kPairs, kInterleaved>, grid,
                     128, a8, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// tools/tpu_v12_ablate2.py's ablations of v12 (32-row tiles, every quad,
+// one plane, int32 tq): ablate 1 nopt, 2 statwin, 3 nomm, 4 mmonly.
+int zxc_copy_engine_quad_ablate(const int32_t* qs, const int32_t* qbase,
+                                const int32_t* pctrl, const int32_t* tq,
+                                const uint8_t* lit8, uint8_t* out, int B,
+                                int NT, int MAXQ, int G32, int RLP,
+                                int ablate, void* stream) {
+  if (B == 0 || NT == 0) return 0;
+  Args<int32_t> a{qs, qbase, nullptr, pctrl, tq, lit8, out,
+                  NT, NT + 1, MAXQ, G32, 1, RLP, 0};
+  const dim3 grid(NT, B);
+  switch (ablate) {
+    case kNoPt:
+      return launch(tiled_kernel<32, int32_t, kOnes, kPlaneMajor, false,
+                                 kNoPt>, grid, 32, a, stream);
+    case kStatWin:
+      return launch(tiled_kernel<32, int32_t, kOnes, kPlaneMajor, false,
+                                 kStatWin>, grid, 32, a, stream);
+    case kNoMM:
+      return launch(tiled_kernel<32, int32_t, kOnes, kPlaneMajor, false,
+                                 kNoMM>, grid, 32, a, stream);
+    case kMMOnly:
+      return launch(tiled_kernel<32, int32_t, kOnes, kPlaneMajor, false,
+                                 kMMOnly>, grid, 32, a, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -3,7 +3,7 @@
 The kernels have a plain C interface (pointers, ints, the stream), so the
 build needs no PyTorch headers and takes seconds. Each source is its own
 library, built at first use (never at import) under its own lock, so the
-two can build in parallel; without nvcc, or when the build or load fails,
+sources can build in parallel; without nvcc, or when the build or load fails,
 it raises.
 """
 from __future__ import annotations
@@ -56,7 +56,8 @@ def _library(stem: str, bind) -> ctypes.CDLL:
 
 
 def _bind_copy_engine(L, vp, ci) -> None:
-    for fn in (L.zxc_copy_engine_v19, L.zxc_copy_engine_v26):
+    for fn in (L.zxc_copy_engine_v19, L.zxc_copy_engine_v25,
+               L.zxc_copy_engine_v26):
         fn.restype = ci
         fn.argtypes = [vp] * 6 + [ci] * 6 + [vp]
     L.zxc_copy_engine_v27.restype = ci
@@ -66,6 +67,8 @@ def _bind_copy_engine(L, vp, ci) -> None:
     L.zxc_copy_engine_v13.argtypes = [vp] * 6 + [ci] * 5 + [vp]
     L.zxc_copy_engine_quad.restype = ci
     L.zxc_copy_engine_quad.argtypes = [vp] * 6 + [ci] * 7 + [vp]
+    L.zxc_copy_engine_quad_ablate.restype = ci
+    L.zxc_copy_engine_quad_ablate.argtypes = [vp] * 6 + [ci] * 6 + [vp]
 
 
 def _bind_encode(L, vp, ci) -> None:
@@ -85,6 +88,16 @@ def _bind_attic(L, vp, ci) -> None:
     L.zxc_lane_sum.restype = ci
     L.zxc_lane_sum.argtypes = [vp, vp, ci, vp, ci, vp, ci, vp, ci, ci, ci,
                                ci, vp]
+    L.zxc_lane_sum_probe.restype = ci
+    L.zxc_lane_sum_probe.argtypes = [vp, vp, ci, vp, ci, vp, ci, ci, ci, vp]
+
+
+def _bind_gather(L, vp, ci) -> None:
+    i64 = ctypes.c_longlong
+    L.zxc_gather_axis1.restype = ci
+    L.zxc_gather_axis1.argtypes = [vp] * 3 + [ci, ci, i64, ci, i64, vp]
+    L.zxc_gather_rows.restype = ci
+    L.zxc_gather_rows.argtypes = [vp, ci, ci, vp, ci, vp, ci, vp]
 
 
 def kernels() -> ctypes.CDLL:
@@ -99,6 +112,12 @@ def encode_kernels() -> ctypes.CDLL:
 
 
 def attic_kernels() -> ctypes.CDLL:
-    """The attic's kernel library (piece-serial, window merge, lane sum),
-    built on first use."""
+    """The attic's kernel library (piece-serial, window merge, lane sum
+    and its probe modes), built on first use."""
     return _library("attic", _bind_attic)
+
+
+def gather_kernels() -> ctypes.CDLL:
+    """The gather probes' kernel library (row-wise gather, row gather),
+    built on first use."""
+    return _library("gather", _bind_gather)

@@ -55,7 +55,9 @@ above); for v10 and v11 ``rl, s, e1 = c & 127, c >> 7 & 127, c >> 14 &
 TPU's one-hot row is empty there; the card gathers the row). v9 and v10
 sum batches [ts[b,t], ts[b,t] + 4 * ((ts[b,t+1] - ts[b,t]) // 4)), v11
 [t * LAYERS, t * LAYERS + 4 * (LAYERS // 4)). A batch outside the control
-(or, for v9, the rows) adds nothing.
+(or, for v9, the rows) adds nothing. ``lane_sum_reference(probe=)``
+states the ablations of v10's body that ``probes.v10_probe`` and
+``probes.v12_ablate`` run (``LANE_PROBES``; kernel ``zxc_lane_sum_probe``).
 
 Bounds on the card: the bytes each call must move (``bytes_moved``,
 ``bytes_moved_window``, ``bytes_moved_lane``; padding not counted) over
@@ -96,6 +98,12 @@ LANE_MODES = (9, 10, 11)
 
 MERGE_PAIRS = 4096    # (window, op) pairs a chunk of the plain merge
 LANE_PAIRS = 1024     # (tile, batch) pairs a chunk of the plain lane sum
+
+# the lane-sum probes of tools/tpu_v10_probe.py and tools/tpu_v12_ablate.py
+# (v10's layout), as csrc/attic.cu numbers them; see lane_sum_reference
+LANE_PROBES = {"nomatmul": 1, "noonehot": 2, "nobcast": 3, "norotate": 4,
+               "norotate_add": 5, "nomask": 6, "floor": 7}
+BCAST_WORD = (3 << 14) | (200 << 21)   # nobcast's slot: row 200, lanes 0-3
 
 
 def _want(specs, device) -> None:
@@ -279,9 +287,10 @@ OTHER_VARIANTS = (
     "attic.decode_blocks_v4, with 9, 10 and 11 through "
     "attic.decode_blocks_v9, decode_blocks_v10 and decode_blocks_v11, and "
     "with 12, 14-17 and 20-24 through attic_quad.decode_blocks_v12, "
-    "decode_blocks_v14, ..., decode_blocks_v24, which the JAX package's "
-    "decompress does not route either; v25 is not ported yet (ROADMAP "
-    "queue 1 item 2)")
+    "decode_blocks_v14, ..., decode_blocks_v24, and with 25 through "
+    "serial.decode_blocks_v25 on plans of batch.resolve_serial(plan, "
+    "self_ref=True), which the JAX package's decompress does not route "
+    "either (ROADMAP queue 3, attic variants past 3)")
 
 
 def decode_blocks(pieces, lit_fulls, totals, block: int, device=None,
@@ -656,10 +665,23 @@ def _check_lane(pctrl, lit, block: int, mode: int, ts, rows,
 
 
 def lane_sum_reference(pctrl, lit, block: int, mode: int, ts=None,
-                       rows=None, layers: int = 0) -> torch.Tensor:
+                       rows=None, layers: int = 0,
+                       probe: str | None = None) -> torch.Tensor:
     """Plain PyTorch version of the lane sum on any device: (B, block)
-    uint8. ``ts`` for v9 and v10, ``rows`` for v9, ``layers`` for v11."""
+    uint8. ``ts`` for v9 and v10, ``rows`` for v9, ``layers`` for v11.
+
+    ``probe`` (mode 10; ``LANE_PROBES``), with u = (bat - ts[b,t]) & 3 the
+    batch's place in the TPU body's group of four: nomatmul adds
+    ``lit[32u + k][(l + rl) & 127] + row`` (masked); noonehot
+    ``lit[32u + k][(l + rl) & 127]`` (0 past the rows); nobcast takes
+    ``BCAST_WORD`` for every slot; norotate ``lit[row][l]``; norotate_add
+    ``lit[row][l] + rl`` (rl alone past the rows); nomask
+    ``lit[row][(l + rl) & 127]`` on every lane of every slot; floor the
+    control word itself on every lane."""
     _check_lane(pctrl, lit, block, mode, ts, rows, layers)
+    if probe is not None and (mode != 10 or probe not in LANE_PROBES):
+        raise ValueError(f"lane probe {probe} (mode {mode}): one of "
+                         f"{sorted(LANE_PROBES)}, in mode 10")
     B, RL, NT = pctrl.shape[0], lit.shape[1], block // TILE
     dev = pctrl.device
     cap = pctrl.shape[1] // 32 * 128
@@ -680,6 +702,8 @@ def lane_sum_reference(pctrl, lit, block: int, mode: int, ts=None,
     b = tile[:, None] // NT
     k = torch.arange(32, device=dev)
     c = pctrl[b, 32 * (bat >> 7) + k, bat & 127].long()      # (pairs, 32)
+    if probe == "nobcast":
+        c = torch.full_like(c, BCAST_WORD)
     if mode == 9:
         rl, s, e1 = c & 255, (c >> 8) & 255, (c >> 16) & 255
         row = rows[b, 32 * bat + k].long()
@@ -688,17 +712,33 @@ def lane_sum_reference(pctrl, lit, block: int, mode: int, ts=None,
     else:
         rl, s, e1 = c & 127, (c >> 7) & 127, (c >> 14) & 127
         row = (c >> 21) & ((1 << V10_ROWBITS) - 1)
-        live = (s <= e1) & (row < RL)
+        live = (s <= e1) & (row < RL) if probe is None else s <= e1
+    src_row, roll, extra = row, rl, torch.zeros_like(row)
+    if probe in ("nomatmul", "noonehot"):     # slot 32u + k's own row
+        src_row = 32 * ((bat - b0.reshape(-1)[tile][:, None]) & 3) + k
+    if probe in ("norotate", "norotate_add"):
+        roll = torch.zeros_like(rl)
+    if probe == "nomatmul":
+        extra = row
+    elif probe == "norotate_add":
+        extra = rl
+    elif probe == "floor":
+        extra = c & 255
     low = (lit.reshape(-1) & 255).int() if mode == 9 else lit.reshape(-1).int()
-    base = (b * RL + row.clamp(max=RL - 1)) * 128
+    base = (b * RL + src_row.clamp(max=RL - 1)) * 128
+    in_rows = (src_row < RL) & (probe != "floor")
+    unmasked = probe in ("nomask", "floor")
     lane = torch.arange(128, device=dev)
     acc = torch.zeros((B * NT, 32, 128), dtype=torch.int32, device=dev)
     for c0 in range(0, len(tile), LANE_PAIRS):
         sl = slice(c0, c0 + LANE_PAIRS)
-        v = low[base[sl, :, None] + ((lane + rl[sl, :, None]) & 127)]
-        m = (live[sl, :, None] & (lane >= s[sl, :, None])
-             & (lane <= e1[sl, :, None]))
-        acc.index_add_(0, tile[sl], torch.where(m, v, 0))
+        v = low[base[sl, :, None] + ((lane + roll[sl, :, None]) & 127)]
+        v = (torch.where(in_rows[sl, :, None], v, 0)
+             + extra[sl, :, None]).int()
+        if not unmasked:
+            v = torch.where(live[sl, :, None] & (lane >= s[sl, :, None])
+                            & (lane <= e1[sl, :, None]), v, 0)
+        acc.index_add_(0, tile[sl], v)
     return (acc & 255).to(torch.uint8).reshape(B, block)
 
 
@@ -734,19 +774,34 @@ lane_sum.launches = 0
 
 def bytes_moved_lane(pctrl: np.ndarray, lit_fulls, block: int, mode: int,
                      ts: np.ndarray | None = None,
-                     nb: np.ndarray | None = None) -> int:
+                     nb: np.ndarray | None = None,
+                     probe: str | None = None) -> int:
     """The bytes one lane sum must move: ``ts`` and ``nb`` where the
     packer makes them, 4 bytes of control a live op slot (s <= e1; v9
     also its 4-byte row), each ``lit_full`` byte once and the (B, block)
-    uint8 output once."""
+    uint8 output once. A ``probe`` reads what its function needs: nomask
+    and floor every slot of the ``nb`` batches, nobcast no control; the
+    literal rows 0-127 (nomatmul, noonehot), 4 bytes of row 200 (nobcast)
+    or none (floor)."""
     c = pctrl.astype(np.int64)
     if mode == 9:
         live = ((c >> 8) & 255) <= ((c >> 16) & 255)
     else:
         live = ((c >> 7) & 127) <= ((c >> 14) & 127)
-    return (sum(a.nbytes for a in (ts, nb) if a is not None)
-            + (8 if mode == 9 else 4) * int(live.sum())
-            + sum(len(lf) for lf in lit_fulls) + len(pctrl) * block)
+    control = (8 if mode == 9 else 4) * int(live.sum())
+    lit = sum(len(lf) for lf in lit_fulls)
+    if probe in ("nomask", "floor"):
+        control = 4 * 32 * int(nb.sum())
+    elif probe == "nobcast":
+        control = 0
+    if probe in ("nomatmul", "noonehot"):
+        lit = sum(min(len(lf), 128 * 128) for lf in lit_fulls)
+    elif probe == "nobcast":
+        lit = sum(4 for lf in lit_fulls if len(lf) > 200 * 128)
+    elif probe == "floor":
+        lit = 0
+    return (sum(a.nbytes for a in (ts, nb) if a is not None) + control
+            + lit + len(pctrl) * block)
 
 
 def decode_blocks_v9(pieces_list, lit_list, totals, block: int, device=None,

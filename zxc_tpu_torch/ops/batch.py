@@ -26,8 +26,9 @@ XLA code) and launch no hand-written kernel. Device entropy decode
 variants raise ``NotImplementedError``: as in the JAX package,
 ``decompress`` routes none of them; variants 4-7 and 9-11 have their own
 entries (``attic.decode_blocks_v4/v9/v10/v11``), and so have 12, 14-17 and
-20-24 (``attic_quad.decode_blocks_v12`` ... ``decode_blocks_v24``); v25 is
-not ported yet (queue 1 item 2).
+20-24 (``attic_quad.decode_blocks_v12`` ... ``decode_blocks_v24``) and v25
+(``serial.decode_blocks_v25``, on plans of ``resolve_serial(plan,
+self_ref=True)``).
 """
 from __future__ import annotations
 
@@ -203,16 +204,22 @@ def plan_frame(archive: bytes, opts: DecodeOpts | None = None) -> FramePlan:
     return plan
 
 
-def resolve_serial(plan: FramePlan, workers: int | None = None):
+def resolve_serial(plan: FramePlan, workers: int | None = None,
+                   self_ref: bool = False):
     """Every block's pure pieces and literal buffer for the serial route
     (``max_frag=1``: the kernels pay per piece, so every multi-piece
     source is materialized), on a thread pool. Returns (pieces, lits), or
     (None, None) when a block exceeds the resolver's piece budget: the
-    frame then takes the expansion route, as in the JAX package."""
+    frame then takes the expansion route, as in the JAX package.
+    ``self_ref``: v25's plans (``serial.decode_blocks_v25``), resolved as
+    ``tools/tpu_v25_selfref.py`` resolves them: a match whose source
+    completes before its destination's 16 KiB supertile is one KOUT piece
+    in output coordinates."""
     def one(i):
         return runtime.resolve_pieces(plan.ll[i], plan.ml[i], plan.off[i],
                                       plan.lit[i], plan.dict_buf,
-                                      device_pure=True, max_frag=1)
+                                      device_pure=True, max_frag=1,
+                                      self_ref=self_ref)
 
     with ThreadPoolExecutor(workers or min(os.cpu_count() or 1, 8)) as ex:
         res = list(ex.map(one, range(plan.n_blocks)))

@@ -1,10 +1,11 @@
-"""Copy-engine decode kernels v19, v26, v27, v13 and the attic's quad-tile
-generations (``quad``, modes 12, 14-17, 20, 21, 23, 24): wrappers, plain
-versions and launch counters.
+"""Copy-engine decode kernels v19, v25, v26, v27, v13 and the attic's
+quad-tile generations (``quad``, modes 12, 14-17, 20, 21, 23, 24):
+wrappers, plain versions and launch counters.
 
 Replaces ``zxc_tpu/ops/pallas_decode.py``: ``_make_kernel_v19`` /
-``v19_kernel``, ``_make_kernel_v26`` / ``v26_kernel``, ``_make_kernel_v27``
-/ ``v27_kernel`` and ``_kernel_v13`` / ``v13_kernel``; and
+``v19_kernel``, ``_make_kernel_v25`` / ``v25_kernel``, ``_make_kernel_v26``
+/ ``v26_kernel``, ``_make_kernel_v27`` / ``v27_kernel`` and ``_kernel_v13``
+/ ``v13_kernel``; and
 ``tools/kernel_attic.py``: ``v12_kernel``, ``v14_kernel``, ``v15_kernel``,
 ``v16_kernel``, ``v17_kernel``, ``v20_kernel``, ``v21_kernel``,
 ``v23_kernel`` and ``v24_kernel``. The Pallas kernels reach their function
@@ -36,9 +37,15 @@ v19's, v13's and the attic modes' window is ``lit8[b]``. v26's window is
 until its supertile has been stored. v27 is v26 whose rows ``r < RLP`` are
 ``flat[loff[b] + r]`` of one ragged lit buffer per group (a row outside
 ``[0, ROWS_TOT)``, or any row of a block with ``loff[b] < 0``, reads 0).
-A slot whose window-relative row exceeds 127, whose source lies outside
-the window, whose target row lies outside the tile or whose quad lies
-outside ``[0, MAXQ)`` adds nothing.
+v25 chooses the window per quad: ``lit8[b]``, or, for a quad whose
+``qbase`` is at least ``OUT_QB_FLAG``, the block's own output at row
+``qbase - OUT_QB_FLAG`` plus the slot's row, which reads 0 until its
+supertile has been stored (the JAX kernel reads what its output buffer
+holds there; no packed plan reads such a row). ``_reference`` also states
+the ablations of v12's body that ``probes.v12_ablate2`` runs
+(``QUAD_ABLATIONS``). A slot whose window-relative row exceeds 127, whose
+source lies outside the window, whose target row lies outside the tile
+or whose quad lies outside ``[0, MAXQ)`` adds nothing.
 
 Bound on the card: the bytes each call must move (``bytes_moved``: ``qs``,
 the live quads' control and the window rows their slots read, each read
@@ -62,8 +69,16 @@ import numpy as np
 import torch
 
 LANES = 128        # bytes per row
-TILE_ROWS = 128    # rows per supertile (v19, v26, v27)
+TILE_ROWS = 128    # rows per supertile (v19, v25, v26, v27)
 V13_ROWS = 32      # rows per tile (v13)
+OUT_QB_FLAG = 1 << 24   # v25: a quad whose qbase is at least this reads out
+# tools/tpu_v12_ablate2.py's ablations of v12's quad body, as the C entry
+# numbers them: nopt adds slot i into tile row i & 31 (no target permute);
+# statwin reads window row w >>> 21 whatever qbase says; nomm reads lit8
+# row qbase + i, adds the row field to each byte before the roll and rounds
+# each masked value to bf16; mmonly adds the gathered row, not rolled or
+# masked, into tile row i & 31
+QUAD_ABLATIONS = {"nopt": 1, "statwin": 2, "nomm": 3, "mmonly": 4}
 
 
 class QuadMode(NamedTuple):
@@ -167,8 +182,16 @@ def quad_ranges(qs, t: int, mode: QuadMode, K: int):
     return [(q0, q0 + mode.floor * n.clamp(min=0), planes)]
 
 
-def _reference(qs, qbase, pctrl, tq, lit8, K: int, self_ref: bool,
-               mode: QuadMode = V19_MODE):
+def _bf16_round(v: torch.Tensor) -> torch.Tensor:
+    """Integers rounded to bf16, nearest even (exact below 2^8)."""
+    return v.float().to(torch.bfloat16).float().to(v.dtype)
+
+
+def _reference(qs, qbase, pctrl, tq, lit8, K: int, window: str = "lit",
+               mode: QuadMode = V19_MODE, ablate: str | None = None):
+    """The copy engine's function: ``window`` "lit" (lit8), "self" (v26:
+    lit8, then the block's output rows) or "quad" (v25: per quad);
+    ``ablate`` one of ``QUAD_ABLATIONS`` (v12's one-plane walk)."""
     B, NT, MAXQ, G32, RLP = _dims(qs, qbase, pctrl, tq, lit8, K, mode)
     rows = mode.rows
     dev = qs.device
@@ -177,11 +200,11 @@ def _reference(qs, qbase, pctrl, tq, lit8, K: int, self_ref: bool,
     lanes = torch.arange(LANES, device=dev)
     slot = torch.arange(128, device=dev)
     qidx = torch.arange(MAXQ, device=dev)
-    win_rows = RLP + NR if self_ref else RLP
+    win_rows = RLP if window == "lit" else RLP + NR
     for t in range(NT):
-        # the window as the kernel sees it at supertile t: v26's output
-        # rows not yet stored are still 0 in `out`
-        win = torch.cat([lit8, out], dim=1) if self_ref else lit8
+        # the window as the kernel sees it at supertile t: the output rows
+        # not yet stored are still 0 in `out`
+        win = lit8 if window == "lit" else torch.cat([lit8, out], dim=1)
         tile = torch.zeros(B * rows * LANES, dtype=torch.int32, device=dev)
         for lo, hi, nk in quad_ranges(qs, t, mode, K):
             bb, qq = ((qidx >= lo[:, None]) & (qidx < hi[:, None])).nonzero(
@@ -197,10 +220,22 @@ def _reference(qs, qbase, pctrl, tq, lit8, K: int, self_ref: bool,
             w = pctrl[bb[:, None, None], prow + (slot & 31)[:, None],
                       (bat & 127)[:, :, None]].long()               # (n,128,nk)
             rowrel = (w[:, :, 0] >> 21) & 0x7FF                     # logical
-            src = qbase[bb, qq].long()[:, None] + rowrel
-            tgt = tq[bb, qq].long()
-            valid = ((rowrel < 128) & (tgt >= 0) & (tgt < rows) & (src >= 0)
-                     & (src < win_rows))
+            qb = qbase[bb, qq].long()[:, None]
+            lo_w, hi_w = 0, win_rows
+            if window == "quad":      # v25: a flagged quad reads out rows
+                out_q = qb >= OUT_QB_FLAG
+                qb = torch.where(out_q, qb - OUT_QB_FLAG + RLP, qb)
+                lo_w = torch.where(out_q, RLP, 0)
+                hi_w = torch.where(out_q, RLP + NR, RLP)
+            if ablate == "statwin":
+                qb = torch.zeros_like(qb)
+            src = qb + (slot if ablate == "nomm" else rowrel)
+            tgt = ((slot & 31).expand(len(qq), -1)
+                   if ablate in ("nopt", "mmonly") else tq[bb, qq].long())
+            valid = ((tgt >= 0) & (tgt < rows) & (src >= lo_w)
+                     & (src < hi_w))
+            if ablate != "nomm":
+                valid &= rowrel < 128
             lo_l = ((w >> 7) & 127)[..., None]
             hi_l = ((w >> 14) & 127)[..., None]
             cov = (lo_l <= lanes) & (lanes <= hi_l)                 # (n,128,nk,128)
@@ -208,10 +243,16 @@ def _reference(qs, qbase, pctrl, tq, lit8, K: int, self_ref: bool,
             for j in range(1, nk):            # the highest covering plane
                 roll = torch.where(cov[:, :, j], (w[:, :, j] & 127)[..., None],
                                    roll)
+            if ablate == "mmonly":            # the gathered row as it is
+                cov = torch.ones_like(cov)
+                roll = torch.zeros_like(roll)
             keep = cov.any(dim=2) & valid[..., None]
             wrow = bb[:, None] * win.shape[1] + torch.where(valid, src, 0)
             idx = (wrow[..., None] * LANES + ((lanes + roll) & 127))
-            val = torch.where(keep, win.reshape(-1)[idx].to(torch.int32), 0)
+            val = win.reshape(-1)[idx].to(torch.int32)
+            if ablate == "nomm":
+                val = _bf16_round(val + rowrel[..., None].int())
+            val = torch.where(keep, val, 0)
             tidx = ((bb[:, None] * rows + torch.where(valid, tgt, 0))[..., None]
                     * LANES + lanes)
             tile.index_add_(0, tidx.reshape(-1), val.reshape(-1))
@@ -235,12 +276,17 @@ def flat_windows(loff, flat, RLP: int) -> torch.Tensor:
 
 def v19_reference(qs, qbase, pctrl, tq, lit8, K: int = 2) -> torch.Tensor:
     """Plain PyTorch v19 on any device: (B, NST*128, 128) uint8."""
-    return _reference(qs, qbase, pctrl, tq, lit8, K, self_ref=False)
+    return _reference(qs, qbase, pctrl, tq, lit8, K)
+
+
+def v25_reference(qs, qbase, pctrl, tq, lit8, K: int = 2) -> torch.Tensor:
+    """Plain PyTorch v25 on any device: (B, NST*128, 128) uint8."""
+    return _reference(qs, qbase, pctrl, tq, lit8, K, window="quad")
 
 
 def v26_reference(qs, qbase, pctrl, tq, lit8, K: int = 2) -> torch.Tensor:
     """Plain PyTorch v26 on any device: (B, NST*128, 128) uint8."""
-    return _reference(qs, qbase, pctrl, tq, lit8, K, self_ref=True)
+    return _reference(qs, qbase, pctrl, tq, lit8, K, window="self")
 
 
 def v27_reference(qs, qbase, loff, pctrl, tq, flat, RLP: int,
@@ -249,14 +295,13 @@ def v27_reference(qs, qbase, loff, pctrl, tq, flat, RLP: int,
     ``flat_windows`` cuts from the flat buffer. (B, NST*128, 128) uint8."""
     _flat_dims(qs, loff, flat, RLP)
     return _reference(qs, qbase, pctrl, tq, flat_windows(loff, flat, RLP),
-                      K, self_ref=True)
+                      K, window="self")
 
 
 def v13_reference(qs, qbase, pctrl, tq, lit8) -> torch.Tensor:
     """Plain PyTorch v13 on any device: one plane, 32-row tiles, int32 tq.
     (B, NT*32, 128) uint8."""
-    return _reference(qs, qbase, pctrl, tq, lit8, 1, self_ref=False,
-                      mode=V13_MODE)
+    return _reference(qs, qbase, pctrl, tq, lit8, 1, mode=V13_MODE)
 
 
 def _launch(entry: str, args, B: int, out_rows: int, ints) -> torch.Tensor:
@@ -300,6 +345,20 @@ def v19(qs, qbase, pctrl, tq, lit8, K: int = 2) -> torch.Tensor:
     out = _launch("zxc_copy_engine_v19", args, B, NST * TILE_ROWS,
                   (B, NST, MAXQ, G32, K, RLP))
     v19.launches += 1
+    return out
+
+
+def v25(qs, qbase, pctrl, tq, lit8, K: int = 2) -> torch.Tensor:
+    """v25 copy engine (window chosen per quad by ``OUT_QB_FLAG``) over one
+    dispatch group: the CUDA kernel for CUDA tensors, the plain version for
+    CPU tensors. Returns (B, NST*128, 128) uint8."""
+    args = (qs, qbase, pctrl, tq, lit8)
+    if not _on_card("v25", qs):
+        return v25_reference(*args, K)
+    B, NST, MAXQ, G32, RLP = _dims(*args, K)
+    out = _launch("zxc_copy_engine_v25", args, B, NST * TILE_ROWS,
+                  (B, NST, MAXQ, G32, K, RLP))
+    v25.launches += 1
     return out
 
 
@@ -360,7 +419,7 @@ def quad_reference(qs, qbase, pctrl, tq, lit8, mode: int,
     read one): (B, NT*R, 128) uint8."""
     m = _quad_mode(mode)
     return _reference(qs, qbase, pctrl, tq, lit8, K if m.multi else 1,
-                      self_ref=False, mode=m)
+                      mode=m)
 
 
 def quad(qs, qbase, pctrl, tq, lit8, mode: int, K: int = 2) -> torch.Tensor:
@@ -383,19 +442,20 @@ def quad(qs, qbase, pctrl, tq, lit8, mode: int, K: int = 2) -> torch.Tensor:
 
 
 v19.launches = 0
+v25.launches = 0
 v26.launches = 0
 v27.launches = 0
 v13.launches = 0
 quad.launches = 0
 
-KERNELS = {19: v19, 26: v26, 27: v27, 13: v13, "quad": quad}
-REFERENCES = {19: v19_reference, 26: v26_reference, 27: v27_reference,
-              13: v13_reference, "quad": quad_reference}
+KERNELS = {19: v19, 25: v25, 26: v26, 27: v27, 13: v13, "quad": quad}
+REFERENCES = {19: v19_reference, 25: v25_reference, 26: v26_reference,
+              27: v27_reference, 13: v13_reference, "quad": quad_reference}
 
 
 def bytes_moved(qs, qbase, pctrl, tq, lit8, K: int = 2, *,
                 rows: int = TILE_ROWS, loff=None, RLP: int | None = None,
-                mode: int | None = None) -> int:
+                mode: int | None = None, ablate: str | None = None) -> int:
     """The bytes one call must move for this group's control, padding
     excluded: all of ``qs``; for each live quad (inside a range that a tile
     runs, below MAXQ) its ``qbase`` word, its 128 ``tq`` entries at their
@@ -405,7 +465,11 @@ def bytes_moved(qs, qbase, pctrl, tq, lit8, K: int = 2, *,
     the (B, NT*rows, 128) uint8 output. v13: ``rows=32, K=1`` (int32
     ``tq``). v27: ``lit8`` is the flat buffer, with ``loff`` (whose B words
     count too) and ``RLP``. ``mode``: an attic generation of ``quad``
-    (its rows, walk, split and layout; K planes only if it reads them)."""
+    (its rows, walk, split and layout; K planes only if it reads them).
+    v25: a quad flagged with ``OUT_QB_FLAG`` reads rows past RLP, the
+    call's own output, counted once as output; so the count holds the lit
+    rows of the other quads. ``ablate`` (mode 12's walk): the rows and
+    ``tq`` entries that ablation reads."""
     m = (_quad_mode(mode) if mode is not None
          else V13_MODE if rows == V13_ROWS else V19_MODE)
     K = K if m.multi else 1
@@ -439,11 +503,16 @@ def bytes_moved(qs, qbase, pctrl, tq, lit8, K: int = 2, *,
         w = pctrl[bb[:, None, None], prow + (slot & 31)[:, None],
                   (bat & 127)[:, :, None]].astype(np.int64) & 0xFFFFFFFF
         rowrel = w[:, :, 0] >> 21
-        src = qbase[bb, qq].astype(np.int64)[:, None] + rowrel
-        tgt = tq[bb, qq].astype(np.int64)
-        adds = ((((w >> 7) & 127) <= ((w >> 14) & 127)).any(axis=2)
-                & (rowrel < 128) & (tgt >= 0) & (tgt < m.rows)
-                & (src >= 0) & (src < RLP))
+        qb = qbase[bb, qq].astype(np.int64)[:, None]
+        src = ((0 if ablate == "statwin" else qb)
+               + (slot if ablate == "nomm" else rowrel))
+        own_tq = ablate not in ("nopt", "mmonly")
+        tgt = tq[bb, qq].astype(np.int64) if own_tq else slot & 31
+        adds = ((tgt >= 0) & (tgt < m.rows) & (src >= 0) & (src < RLP)
+                & (ablate == "mmonly"
+                   or (((w >> 7) & 127) <= ((w >> 14) & 127)).any(axis=2)))
+        if ablate != "nomm":
+            adds &= rowrel < 128
         if flat:   # rows of the shared flat buffer
             frow = loff[bb][:, None] + src
             adds &= ((loff[bb] >= 0)[:, None] & (frow >= 0)
@@ -451,7 +520,8 @@ def bytes_moved(qs, qbase, pctrl, tq, lit8, K: int = 2, *,
             read.append(frow[adds])
         else:
             read.append((bb[:, None] * RLP + src)[adds])
-        control += len(qq) * (4 + LANES * tq.itemsize + nk * LANES * 4)
+        control += len(qq) * (4 * (ablate != "statwin") + nk * LANES * 4
+                              + LANES * tq.itemsize * own_tq)
     n_rows = len(np.unique(np.concatenate(read))) if read else 0
     return (qs.nbytes + control + n_rows * LANES + (4 * B if flat else 0)
             + B * NT * m.rows * LANES)

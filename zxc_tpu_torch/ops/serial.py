@@ -10,8 +10,21 @@ packers are the JAX package's, copied bit for bit. Each dispatch group
 goes to the device once and runs one kernel launch
 (``copy_engine.v13`` / ``v19``); the output bytes are the kernels' int32
 tiles reduced mod 256, as the JAX consumers reduce them.
+
+v25 (``decode_blocks_v25``, the JAX package's ``pallas_decode.v25_kernel``
+and ``pack_blocks_v25``, reached there only by
+``tools/tpu_v25_selfref.py``) takes plans resolved with ``self_ref=True``
+(``batch.resolve_serial(plan, self_ref=True)``): a KOUT piece copies the
+block's own output from a source that completes before its destination's
+16 KiB supertile. ``lane_ops_blocks_v25`` moves those sources into a
+sentinel row space (``OUT_SENT_ROWS``), so the packer chunks them into
+quads of their own whose ``qbase`` carries ``copy_engine.OUT_QB_FLAG``,
+and ``copy_engine.v25`` reads their rows from the supertiles it has
+already stored.
 """
 from __future__ import annotations
+
+import time
 
 import numpy as np
 import torch
@@ -19,6 +32,12 @@ import torch
 from ..errors import ZxcError, ERROR_CORRUPT_DATA
 from .. import runtime
 from . import copy_engine
+from .device_pipeline import _add, _device
+
+OUT_SENT_ROWS = 1 << 15          # v25: sentinel row base of OUT sources
+OUT_SENT_BYTES = OUT_SENT_ROWS * 128
+OUT_QB_FLAG = copy_engine.OUT_QB_FLAG
+SUPERTILE = 16384                # output bytes of a 128-row supertile
 
 
 def lane_ops_blocks(pieces_list, totals):
@@ -33,15 +52,33 @@ def lane_ops_blocks(pieces_list, totals):
     return per
 
 
-def window_chunks(src, base_align: int = 16):
+def lane_ops_blocks_v25(pieces_list, totals):
+    """``lane_ops_blocks`` over plans that may hold KOUT pieces: their
+    output-coordinate sources move into the sentinel row space and their
+    kind becomes pure, so the native splitter needs no change."""
+    shifted = []
+    for po, pc, ps, pk in pieces_list:
+        kout = pk == np.int32(runtime.KOUT)
+        if kout.any():
+            pc = np.where(kout, pc + np.int32(OUT_SENT_BYTES), pc)
+            pk = np.where(kout, np.int32(1 << 30), pk)
+        shifted.append((po, pc, ps, pk))
+    return lane_ops_blocks(shifted, totals)
+
+
+def window_chunks(src, base_align: int = 16, out_base_max=None):
     """Split row-sorted sources into runs of at most 128 whose rows lie
     within 127 of the run's base (the first row rounded down to
     ``base_align``, as the bodies' aligned window loads need): [(base, i,
-    j)]."""
+    j)]. ``out_base_max`` (v25): the base of a run of OUT sources (at or
+    past ``OUT_SENT_ROWS``) is at most this, so its window fits the
+    block's output rows."""
     out = []
     i, n = 0, len(src)
     while i < n:
         base = int(src[i]) & ~(base_align - 1)
+        if out_base_max is not None and src[i] >= OUT_SENT_ROWS:
+            base = min(base, out_base_max)
         j = min(i + 128, n)
         while src[j - 1] - base > 127:       # shrink until the window fits
             j -= 1
@@ -217,12 +254,33 @@ def pack_blocks_v19(pieces_list, lit_list, totals, block: int,
 
     Returns (qs, qbase, pctrl, tq, lit8) shaped as pack_blocks_v15's
     output except pctrl is (B, K*NG32, 128) with one plane per sub-op."""
-    B = len(pieces_list)
     if per is None:
         per = lane_ops_blocks(pieces_list, totals)
+    return _pack_slots(per, lit_list, block, MAXQ, RL, quad_align, K,
+                       out_plane=False)
+
+
+def pack_blocks_v25(pieces_list, lit_list, totals, block: int,
+                    per=None, MAXQ=None, RL=None, quad_align: int = 2,
+                    K: int = 2):
+    """Pack the v25 dispatch batch: v19's layout, with the quads of OUT
+    sources (``lane_ops_blocks_v25``) chunked apart, their window base
+    clamped to NR - 128 and their ``qbase`` the output row plus
+    ``OUT_QB_FLAG``; RLP counts lit windows only."""
+    if per is None:
+        per = lane_ops_blocks_v25(pieces_list, totals)
+    return _pack_slots(per, lit_list, block, MAXQ, RL, quad_align, K,
+                       out_plane=True)
+
+
+def _pack_slots(per, lit_list, block: int, MAXQ, RL, quad_align: int,
+                K: int, out_plane: bool):
+    """The packing of v19 and (``out_plane``) v25."""
+    B = len(per)
     NR = block // 128
     assert NR % 128 == 0, "v19 needs block >= 16384"
     NST = NR // 128
+    out_base_max = OUT_SENT_ROWS + NR - 128 if out_plane else None
     blocks = []
     maxq = 1
     maxrow = 0
@@ -232,9 +290,10 @@ def pack_blocks_v19(pieces_list, lit_list, totals, block: int,
         for st in range(NST):
             ssrc, stgt, sctl, _ = group_slots(
                 supertile_ops(rows, rl, s, e, tile_start, st), K)
-            for base, i, j in window_chunks(ssrc):
+            for base, i, j in window_chunks(ssrc, out_base_max=out_base_max):
                 quads.append((base, ssrc[i:j], stgt[i:j], sctl[i:j]))
-                maxrow = max(maxrow, base + 128)
+                if not out_plane or base < OUT_SENT_ROWS:   # lit windows
+                    maxrow = max(maxrow, base + 128)
             if len(ssrc) == 0:
                 quads.append((0, ssrc, stgt, sctl))
                 maxrow = max(maxrow, 128)
@@ -263,7 +322,8 @@ def pack_blocks_v19(pieces_list, lit_list, totals, block: int,
         qs[j, :len(qs_t)] = qs_t
         qs[j, len(qs_t):] = qs_t[-1]
         for q, (base, ssrc, stgt, sctl) in enumerate(quads):
-            qbase[j, q] = base
+            qbase[j, q] = (base - OUT_SENT_ROWS + OUT_QB_FLAG
+                           if out_plane and base >= OUT_SENT_ROWS else base)
             n = len(ssrc)
             if not n:
                 continue
@@ -342,3 +402,42 @@ def decode_groups(groups, totals, block: int, v13: bool,
     host = torch.cat(outs).view(-1, block).cpu().numpy()
     return [host[j, :totals[j]].tobytes() for j in range(len(totals))]
 
+
+
+def pack_groups_v25(pieces_list, lit_list, totals, block: int,
+                    dispatch: int = 16, K: int = 2):
+    """``pack_blocks_v25`` of every dispatch group (the last padded with
+    copies of the last block whose totals are 0), padded to one (MAXQ,
+    RLP), as ``tools/tpu_v25_selfref.py`` packs them."""
+    raw = [pack_blocks_v25(p, l, t, block, quad_align=2, K=K)
+           for p, l, t in _groups(pieces_list, lit_list, totals, dispatch)]
+    MAXQ = max(s[1].shape[1] for s in raw)
+    RLP = max(s[4].shape[1] for s in raw)
+    return [pad_v19_set(s, MAXQ, RLP, K) for s in raw]
+
+
+def decode_blocks_v25(pieces, lits, totals, block: int, device=None,
+                      dispatch: int = 16, *,
+                      _phases: dict | None = None) -> list[bytes]:
+    """Decode plans resolved with ``self_ref=True`` through v25, one
+    ``copy_engine.v25`` launch per dispatch group. Blocks must be a
+    multiple of 16 KiB and at least 32 KiB: the JAX packer asserts below
+    16 KiB, and a block of one supertile has no source that completes
+    before its destination's supertile (ValueError). ``device``: None
+    means cuda (raises without it); "cpu" runs the plain version.
+    ``_phases`` receives the ``pack`` and ``device`` seconds. Returns each
+    block's bytes."""
+    if block < 2 * SUPERTILE or block % SUPERTILE:
+        raise ValueError(f"v25 needs a block of at least 32768 bytes and a "
+                         f"multiple of {SUPERTILE}, not {block}")
+    dev = _device(device, "serial.decode_blocks_v25")
+    if not len(pieces):
+        return []
+    t0 = time.perf_counter()
+    groups = pack_groups_v25(pieces, lits, totals, block, dispatch)
+    t0 = _add(_phases, "pack", t0)
+    outs = [copy_engine.v25(*copy_engine.group_from_numpy(*g, device=dev))
+            for g in groups]
+    host = torch.cat(outs).view(-1, block).cpu().numpy()
+    _add(_phases, "device", t0)
+    return [host[j, :totals[j]].tobytes() for j in range(len(totals))]
