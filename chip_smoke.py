@@ -20,8 +20,10 @@ Phases, in order; any failure exits non-zero before the result line:
    ``write_hints`` of the 64 KiB archive, timed on its own;
 3. each kernel against its plain PyTorch version on the card, on the first
    dispatch group as the port's pipelines ship it (v19, v26: the cold
-   prep; v27: the hint's control and the batch replay's flat lit; v13: the
-   4 KiB archive as ``ops/serial.py`` packs it; the attic kernel: the
+   prep, and v26 also on the 512 KiB archive's first group, 32 supertiles
+   a block, with the share of quads by supertile that read the block's
+   own output; v27: the hint's control and the batch replay's flat lit;
+   v13: the 4 KiB archive as ``ops/serial.py`` packs it; the attic kernel: the
    64 KiB archive as ``ops.decompress(use_serial=True, variant=2)`` packs
    it; the window merge in modes v4-v7 and the lane sum in modes v9-v11:
    the same blocks as ``attic.decode_blocks_v4/v9/v10/v11`` pack them;
@@ -49,8 +51,8 @@ Phases, in order; any failure exits non-zero before the result line:
    and read just after; each output must equal the corpus (or its range)
    and each path's kernel must have launched once per group and no other
    kernel at all: the cold ``decompress_e2e`` with v26 (the default) and
-   v19; the hint path ``decompress_e2e(hint=)`` with v27 (its default) and
-   with v26; the default ``ops.decompress`` route (piece plans expanded by
+   v19, and with v26 over the 512 KiB archive; the hint path
+   ``decompress_e2e(hint=)`` with v27 (its default) and with v26; the default ``ops.decompress`` route (piece plans expanded by
    tensor ops) at 512 KiB and 64 KiB blocks and its chase route
    (``use_pieces=False``) at 512 KiB, which launch no hand-written kernel;
    ``Seekable.decompress_range_device`` over a range of 11 blocks of the
@@ -337,6 +339,25 @@ def run_compress(EK, n_groups, fn, data, native_len, reps=3):
           f"{walls[best]:.4f} s = {len(data) / 1e9 / walls[best]:.4f} GB/s; "
           "phases " + fmt_phases(phs[best]), flush=True)
     return counts, arc
+
+
+def out_quads(qs, qbase, RLP: int) -> str:
+    """Per supertile, the quads a v26 group runs (pair-floored ranges
+    clipped to [0, MAXQ)) whose window reaches the block's own output
+    (qbase + 127 >= RLP), as "out/all" strings."""
+    qs, qbase = qs.cpu().numpy(), qbase.cpu().numpy()
+    shares = []
+    for t in range(qs.shape[1] - 1):
+        n = o = 0
+        for b in range(qs.shape[0]):
+            q0 = int(qs[b, t])
+            hi = min(q0 + 2 * max(0, (int(qs[b, t + 1]) - q0) >> 1),
+                     qbase.shape[1])
+            live = qbase[b, max(q0, 0):max(hi, 0)].astype(np.int64)
+            n += len(live)
+            o += int((live + 127 >= RLP).sum())
+        shares.append(f"{o}/{n}")
+    return " ".join(shares)
 
 
 def group_bytes_equal(data, totals, block, dispatch):
@@ -741,18 +762,28 @@ def main() -> None:
 
     # -- 3. kernel vs plain on the first dispatch group --------------------
     rows = {}
-    for variant in (19, 26):
-        pipe = DP.DevicePipeline(walk, arc, K=2, dispatch=DISPATCH,
+    walk512 = DP.walk_frame(arc512)
+    for key, name, variant, w, a, block in (
+            (19, "v19", 19, walk, arc, BLOCK),
+            (26, "v26", 26, walk, arc, BLOCK),
+            ("v26_512k", "v26_512k", 26, walk512, arc512, DEFAULT_BLOCK)):
+        pipe = DP.DevicePipeline(w, a, K=2, dispatch=DISPATCH,
                                  variant=variant)
         pipe.size_shapes()
         buf, host_args = pipe.prep_group(0)
         args = tuple(t.cuda() for t in host_args)
         kern, ref = CE.KERNELS[variant], CE.REFERENCES[variant]
-        rows[variant] = kernel_row(
-            f"v{variant}", SOURCE, REPLACES[variant], lambda: kern(*args),
-            lambda: ref(*args), CE.bytes_moved(*host_args, K=2),
-            f"MAXQ={pipe.MAXQ} RLP={pipe.RLP} NG32={pipe.NG32}",
-            first_group=group_bytes_equal(data, buf.totals, BLOCK, DISPATCH))
+        shape = (f"B={DISPATCH} NST={pipe.NST} MAXQ={pipe.MAXQ} "
+                 f"RLP={pipe.RLP} NG32={pipe.NG32}")
+        if variant == 26:
+            shape += (", quads reading own output by supertile "
+                      + out_quads(*host_args[:2], pipe.RLP))
+        rows[key] = kernel_row(
+            name, SOURCE, REPLACES[variant], lambda: kern(*args),
+            lambda: ref(*args),
+            CE.bytes_moved(*host_args, K=2), shape,
+            first_group=group_bytes_equal(data, buf.totals, block, DISPATCH))
+        del args
     pipe = DP.DevicePipeline(walk, arc, dispatch=DISPATCH, variant=None,
                              hint=hint)
     check(pipe.variant == 27, f"the hint selected v{pipe.variant}, not v27")
@@ -855,6 +886,16 @@ def main() -> None:
                               _collect="fingerprint")
         check(fp[:2] == fp_host and fp[2:] == (walk.n_blocks, len(data)),
               f"e2e v{variant} fingerprint {fp} vs host {fp_host}")
+    # v26 over 512 KiB blocks: 32 supertiles a block, 4 groups
+    rows["v26_512k"]["launches"] = run_path(
+        "e2e v26 (cold), 512 KiB blocks", 26, -(-n_blocks512 // DISPATCH),
+        lambda ph: Z.decompress_e2e(arc512, device="cuda", variant=26,
+                                    _phases=ph), data)
+    fp = Z.decompress_e2e(arc512, device="cuda", variant=26,
+                          _collect="fingerprint")
+    check(fp[:2] == host_fingerprint(data, DEFAULT_BLOCK)
+          and fp[2:] == (n_blocks512, len(data)),
+          f"e2e v26 512 KiB fingerprint {fp}")
     # the hint path: the first run ships the control pages to the card
     # (the HintFile keeps them), the timed repeats ship lit only
     rows[27]["launches"] = run_path(
@@ -1108,13 +1149,13 @@ def main() -> None:
     check(Z.decompress_e2e(small, device="cuda", hint=small_hint)
           == data[:4 * BLOCK], "the unflipped small hint does not decode")
 
-    kernels = ([rows[v] for v in (19, 26, 27, 13)]
+    kernels = ([rows[v] for v in (19, 26, "v26_512k", 27, 13)]
                + [enc_rows[k] for k in ("lcp", "parse_walk")]
                + [rows[k] for k in ("attic", "v4", "v5", "v6", "v7", "v9",
                                     "v10", "v11")]
                + [rows[f"v{v}"] for v in QUAD_REPLACES]
                + [rows[25]] + [rows[k] for k in PROBES])
-    check(len(kernels) == 33 and all(r["launches"] for r in kernels),
+    check(len(kernels) == 34 and all(r["launches"] for r in kernels),
           f"kernel rows without launches: {kernels}")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -4,7 +4,10 @@ v13, the attic's quad-tile generations as ``quad`` in modes 12, 14-17, 20,
 merge and lane sum, and the probes of ``tools/``: v12's quad ablations,
 the lane-sum probes and the gathers) against its plain PyTorch version on
 the card, on valid and on garbage control, misaligned or non-contiguous
-operands refused, and the cold, hint, serial, v25 and attic decodes
+operands refused; v26 and v27 also on a (supertile, block) grid larger
+than the card holds at once, on plans with the longest dependency chain
+and with reads on both sides of the stored-row boundary, and over
+repeated launches on one stream and on two; and the cold, hint, serial, v25 and attic decodes
 (``attic_quad``'s ten entries included), the default expansion route (no
 hand-written kernel),
 ``Seekable.decompress_range_device`` and the device encode against the
@@ -123,6 +126,193 @@ def test_v27_equals_plain_version_on_card(card, garbage):
         torch.cuda.synchronize()
         assert CE.v27.launches == before + 1
         assert torch.equal(out, CE.v27_reference(*args, RLP=RLP))
+
+
+def _plan_words(rng, K: int, kind: str):
+    """Plane words (rowrel 0) of one slot covering every lane once: plane
+    0 below a split, plane 1 from it (or plane 0 alone); ``kind`` "mixed"
+    also makes overlapping planes (the higher wins), gaps and filler."""
+    roll = rng.integers(0, 128, K)
+    words = [1 << 7] * K
+    cut = int(rng.integers(1, 128))
+    lo1 = cut
+    if kind == "mixed" and rng.random() < 0.3:
+        lo1 = max(cut - int(rng.integers(1, 20)), 0)     # overlap
+    if K == 1 or rng.random() < 0.25:
+        words[0] = int(roll[0] | (127 << 14))
+    else:
+        words[0] = int(roll[0] | ((cut - 1) << 14))
+        words[1] = int(roll[1] | (lo1 << 7) | (127 << 14))
+    if kind == "mixed" and rng.random() < 0.2:
+        words[0] = int(roll[0] | (5 << 7) | (60 << 14))  # lanes uncovered
+    if kind == "mixed" and rng.random() < 0.1:
+        words = [1 << 7] * K                             # filler
+    for j in range(2, K):
+        if rng.random() < 0.5:
+            s = int(rng.integers(0, 128))
+            words[j] = int(roll[j] | (s << 7) | (min(s + 9, 127) << 14))
+    return words
+
+
+def plan_group(seed: int, B: int, NST: int, RLP: int, K: int = 2,
+               kind: str = "chain"):
+    """A v26 dispatch group whose adds never collide: each supertile's
+    quads (two of 64 live slots) target each tile row once, so every sum
+    stays a byte (the JAX kernel's bf16 window is exact). ``kind``:
+    "chain", every quad of supertile t >= 1 reads rows of supertile t-1
+    (the longest dependency); "boundary", one quad of supertile t >= 1
+    reads output rows t*128-64 .. t*128+63 (slot rows 63 and 64: the last
+    stored row and the first row that must read 0 though the block's
+    later CTAs store it; supertile 0's straddles RLP), the other lit
+    rows; "mixed", windows in lit
+    rows, straddling RLP, in stored and in unstored output rows, targets
+    and rows out of range, odd quad counts (the trailing quad runs
+    nowhere) and empty supertiles. Returns (qs, qbase, pctrl, tq, lit8)."""
+    rng = np.random.default_rng(seed)
+    NR = NST * 128
+    blocks = []
+    for b in range(B):
+        quads, bounds = [], [0]
+        for t in range(NST):
+            rows = rng.permutation(128)
+            nq = 2
+            if kind == "mixed":
+                nq = int(rng.choice([0, 1, 2, 2, 3]))
+            for h in range(nq):
+                if kind == "chain":
+                    base = (RLP + (t - 1) * 128 if t else
+                            16 * int(rng.integers(0, (RLP - 128) // 16 + 1)))
+                elif kind == "boundary" and h == 0:
+                    base = RLP + t * 128 - 64
+                elif kind == "boundary":     # lit rows keep tiles busy
+                    base = 16 * int(rng.integers(0, (RLP - 128) // 16 + 1))
+                else:
+                    opts = [16 * int(rng.integers(0, (RLP - 128) // 16 + 1)),
+                            RLP - 64,
+                            RLP + 16 * int(rng.integers(0, (NR - 128) // 16
+                                                        + 1))]
+                    if t:
+                        opts.append(RLP + 16 * int(rng.integers(
+                            0, max(t * 128 - 128, 0) // 16 + 1)))
+                    base = int(rng.choice(opts))
+                slots = []
+                for i in range(64):
+                    rowrel = int(rng.integers(0, 128))
+                    if kind == "boundary" and h == 0:
+                        rowrel = (63, 64, rowrel)[i % 3]
+                    tgt = int(rows[(64 * h + i) % 128])
+                    if kind == "mixed" and rng.random() < 0.05:
+                        rowrel = int(rng.integers(128, 2048))
+                    if kind == "mixed" and rng.random() < 0.05:
+                        tgt = int(rng.integers(128, 256))
+                    slots.append((rowrel, tgt, _plan_words(rng, K, kind)))
+                quads.append((base, slots))
+            bounds.append(len(quads))
+        blocks.append((bounds, quads))
+    MAXQ = max(2, max(len(q) for _, q in blocks))
+    NG32 = 32 * -(-4 * MAXQ // 128)
+    qs = np.zeros((B, NST + 1), np.int32)
+    qbase = np.zeros((B, MAXQ), np.int32)
+    pctrl = np.full((B, K * NG32, 128), 1 << 7, np.int64)
+    tq = np.zeros((B, MAXQ, 128), np.uint8)
+    for b, (bounds, quads) in enumerate(blocks):
+        qs[b] = bounds
+        for q, (base, slots) in enumerate(quads):
+            qbase[b, q] = base
+            for i, (rowrel, tgt, words) in enumerate(slots):
+                bat = 4 * q + (i >> 5)
+                for j in range(K):
+                    pctrl[b, j * NG32 + 32 * (bat >> 7) + (i & 31),
+                          bat & 127] = words[j] | (rowrel << 21 if j == 0
+                                                   else 0)
+                tq[b, q, i] = tgt
+    lit8 = rng.integers(0, 256, (B, RLP, 128)).astype(np.uint8)
+    return (qs, qbase, pctrl.astype(np.uint32).view(np.int32), tq, lit8)
+
+
+# v26/v27 on the (supertile, block) grid: NST = 32 (the 512 KiB blocks'
+# first group, 512 CTAs, more than the card holds at once) and 4
+BIG = (16, 32, 832, 4608)
+
+
+def _self_ref_call(variant: int, host, card):
+    """(kernel call, plain call) of v26 or v27 (the flat layout of the v26
+    ``host`` group) on the card."""
+    if variant == 26:
+        args = CE.group_from_numpy(*host, device=card)
+        return lambda: CE.v26(*args), lambda: CE.v26_reference(*args)
+    flat, RLP = flat_group(7, host)
+    args = CE.group_from_numpy(*flat, device=card)
+    return (lambda: CE.v27(*args, RLP=RLP),
+            lambda: CE.v27_reference(*args, RLP=RLP))
+
+
+@pytest.mark.parametrize("garbage", [False, True])
+@pytest.mark.parametrize("variant", [26, 27])
+def test_self_ref_grid_larger_than_card_on_card(card, variant, garbage):
+    kern, ref = _self_ref_call(variant, random_group(
+        31, *BIG, 2, True, garbage=garbage), card)
+    before = CE.KERNELS[variant].launches
+    out = kern()
+    torch.cuda.synchronize()
+    assert CE.KERNELS[variant].launches == before + 1
+    assert torch.equal(out, ref())
+
+
+@pytest.mark.parametrize("garbage", [False, True])
+@pytest.mark.parametrize("variant", [26, 27])
+def test_self_ref_ranges_over_one_scan_on_card(card, variant, garbage):
+    """Supertile ranges of more than 1024 quads (MAXQ 4200 over 2
+    supertiles; with seed 32 supertile 1 runs 1,202 quads of valid and
+    2,942 of garbage control): a CTA lists and adds its quads in several
+    scans, pass 2 in each."""
+    kern, ref = _self_ref_call(variant, random_group(
+        32, 2, 2, 4200, 512, 2, True, garbage=garbage), card)
+    out = kern()
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref())
+
+
+@pytest.mark.parametrize("kind", ["chain", "boundary", "mixed"])
+@pytest.mark.parametrize("variant", [26, 27])
+def test_self_ref_dependency_plans_on_card(card, variant, kind):
+    for seed, (B, NST, RLP, K) in enumerate(((16, 32, 4608, 2),
+                                             (16, 4, 768, 2),
+                                             (3, 8, 256, 3))):
+        kern, ref = _self_ref_call(variant, plan_group(
+            seed, B, NST, RLP, K, kind), card)
+        out = kern()
+        torch.cuda.synchronize()
+        assert torch.equal(out, ref())
+
+
+@pytest.mark.parametrize("variant", [26, 27])
+def test_self_ref_repeated_launches_on_card(card, variant):
+    """50 launches on one stream, two plans in turn (each call's output
+    and scratch reuse the last call's memory, which holds the other
+    plan's bytes and set flags), then launches alternating between two
+    streams: each equals its plain version."""
+    calls = [_self_ref_call(variant, plan_group(
+        40 + k, 16, 32, 4608, 2, kind), card)
+        for k, kind in enumerate(("boundary", "chain"))]
+    want = [ref() for _, ref in calls]
+    before = CE.KERNELS[variant].launches
+    for n in range(50):
+        out = calls[n % 2][0]()
+        assert torch.equal(out, want[n % 2]), f"launch {n}"
+        del out
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for r in range(10):
+        outs = []
+        for k, s in enumerate(streams):
+            s.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(s):
+                outs.append(calls[(k + r) % 2][0]())
+        torch.cuda.synchronize()
+        for k, o in enumerate(outs):
+            assert torch.equal(o, want[(k + r) % 2]), f"round {r}"
+        del outs
+    assert CE.KERNELS[variant].launches == before + 70
 
 
 @pytest.mark.parametrize("garbage", [False, True])

@@ -66,20 +66,45 @@
 //
 // What bounds it on the card: the work is an indexed gather and scatter
 // over a few MB per dispatch group (control + windows + output), far
-// below both the H100's 3.35 TB/s and its integer rate; the time goes to
-// latency — each slot is a chain of dependent loads (control word ->
-// source row) followed by shared-memory atomics — and to parallelism,
-// since v26/v27 run one CTA per block (16 CTAs per group on 132 SMs).
-// Design: one warp per slot, 4 lanes per thread. The warp loads the
-// 128-byte source row once (one 4-byte word per thread, coalesced) and
-// rotates it with two shuffles and a funnel shift per plane; the tile
-// lives in shared memory as int32 and takes atomicAdd, so the add
-// semantics hold exactly for any control. v19, v13 and the attic modes
-// grid over (tile, block), one CTA each; v25, v26 and v27 loop over
-// supertiles inside one CTA with __syncthreads() between them, reading
-// earlier supertiles back from global memory. v27 reads its flat rows straight from global memory
-// (staging the window in shared memory with TMA is later work). TMA,
-// wgmma and occupancy tuning are later work.
+// below both the H100's 3.35 TB/s and its integer rate. The tile
+// routine's time goes to latency: each slot is a chain of dependent loads
+// (control word -> source row -> shared-memory atomics), one slot in
+// flight a warp. v26/v27's time goes to the SMs' issue of each slot's
+// shuffles and shared atomics (a batch's row loads overlap), to the SMs a
+// group fills (1024 threads at 64 registers take an SM's register file,
+// so one CTA an SM) and to the chain of a block's supertiles through the
+// rows they read back (PERF.md, P6).
+// Design of the tile routine (v19, v13, v25 and the attic modes): one warp
+// per slot, 4 lanes per thread. The warp loads the 128-byte source row
+// once (one 4-byte word per thread, coalesced) and rotates it with two
+// shuffles and a funnel shift per plane; the tile lives in shared memory
+// as int32 and takes atomicAdd, so the add semantics hold exactly for any
+// control. v19, v13 and the attic modes grid over (tile, block), one CTA
+// each; v25 loops over supertiles inside one CTA with __syncthreads()
+// between them, reading earlier supertiles back from global memory.
+// Design of v26/v27 (self_ref_grid_kernel): one CTA per (supertile,
+// block), the same int32 tile. A supertile depends on earlier ones only
+// through slots whose source row is >= RLP (the block's own output). A
+// CTA lists its quads in shared memory by the rows their windows reach
+// (one qbase load a quad), adds the slots that read lit rows (pass 1, no
+// wait), and only if some quad reaches stored output rows waits on the
+// ready flags of supertiles 0..t-1 of its block and adds those slots
+// (pass 2); then it stores its tile and publishes its own flag
+// (__threadfence + release store; waiters poll with acquire loads and
+// read output rows through L2 with __ldcg, and every reader waits on
+// each flag it needs, so a flag set without a wait misleads no one). CTAs
+// take (t, b) from an atomic ticket in t-major order, so a CTA waits only
+// on CTAs that took smaller tickets and are already resident: no deadlock
+// whatever the grid size. The ticket and flags live in a per-call
+// scratch the entry zeroes on the launch stream. In pass 1 a warp takes
+// the 32 slots of one (quad, batch) pair, in pass 2 a quarter of them (a
+// CTA's few output-reading quads are the chain's critical work, so they
+// spread over more warps): each lane loads its slot's control words and
+// target row in one instruction each, a ballot drops slots that add
+// nothing (filler, out-of-range rows, rows the pass does not read), and
+// the warp issues kInflight source-row loads before it rotates and adds
+// them; planes that cover no lane are skipped. TMA and wgmma are later
+// work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -92,7 +117,10 @@ constexpr int kThreads = 1024;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int64_t kOutQbFlag = 1 << 24;   // v25: qbase of an output quad
 
-// kQuadSelfRef (v25): lit8, or the block's stored output for a flagged quad
+// kQuadSelfRef (v25): lit8, or the block's stored output for a flagged quad.
+// kSelfRef and kFlatSelfRef are v26's and v27's windows in the tile
+// routine, which no entry launches since they run self_ref_grid_kernel;
+// they go with v25's move to that schedule.
 enum Window { kLit = 0, kSelfRef = 1, kFlatSelfRef = 2, kQuadSelfRef = 3 };
 // tools/tpu_v12_ablate2.py's modes (kNone: the full body)
 enum Ablate { kNone = 0, kNoPt = 1, kStatWin = 2, kNoMM = 3, kMMOnly = 4 };
@@ -305,6 +333,255 @@ __global__ void __launch_bounds__(kThreads) self_ref_kernel(
     run_tile<128, kWin>(a, blockIdx.x, t, tile);
 }
 
+// ---- v26/v27: one CTA per (supertile, block) ------------------------------
+
+constexpr int kRegPlanes = 2;   // control planes a lane holds for its slot
+constexpr int kInflight = 8;    // source-row loads a warp keeps in flight
+// pass 2's 32-slot batches are split in kOutParts parts, one a warp
+constexpr int kOutParts = 4;
+// polls of a ready flag (over 100 ns each) before the kernel traps: a
+// wait that long means a fault, not a slow supertile
+constexpr int64_t kSpinLimit = int64_t(1) << 28;
+
+__device__ __forceinline__ int32_t ld_acquire(const int32_t* p) {
+  int32_t v;
+  asm volatile("ld.acquire.gpu.global.s32 %0, [%1];"
+               : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_release(int32_t* p, int32_t v) {
+  asm volatile("st.release.gpu.global.s32 [%0], %1;"
+               :: "l"(p), "r"(v) : "memory");
+}
+
+// plane word w of a slot over the warp's source row (lane l holds bytes
+// 4l..4l+3): where w covers lane bytes, the rolled bytes replace val's
+// and cover marks them (a later plane overrides an earlier one)
+__device__ __forceinline__ void apply_plane(uint32_t w, uint32_t word,
+                                            int lane, uint32_t& val,
+                                            uint32_t& cover) {
+  const int lo_l = (w >> 7) & 127;
+  const int hi_l = (w >> 14) & 127;
+  if (lo_l > hi_l) return;   // covers no lane; w is warp-uniform
+  const int roll = w & 127;
+  const int from = lane + (roll >> 2);
+  const uint32_t w_lo = __shfl_sync(kFull, word, from & 31);
+  const uint32_t w_hi = __shfl_sync(kFull, word, (from + 1) & 31);
+  const uint32_t rot = __funnelshift_r(w_lo, w_hi, 8 * (roll & 3));
+  const int first = max(lo_l - 4 * lane, 0);      // bytes [first, end)
+  const int end = min(hi_l - 4 * lane + 1, 4);
+  if (first < end) {
+    const uint32_t m = (0xffffffffu >> (8 * (4 - end)))
+                       & (0xffffffffu << (8 * first));
+    val = (val & ~m) | (rot & m);
+    cover |= m;
+  }
+}
+
+constexpr int kChunk = kThreads;   // quads a CTA lists in one scan
+
+// One scan's quads by the window rows [qb, qb + 127] they reach: list 0
+// (pass 1) those reaching lit rows (< RLP), list 1 (pass 2) those reaching
+// stored output rows (RLP .. RLP + t*128 - 1); a quad may be on both.
+struct QuadLists {
+  int n[2];
+  int q[2][kChunk];
+  int qb[2][kChunk];
+};
+
+// Lists the quads [c0, min(c0 + kChunk, qhi)) of block b for supertile t:
+// one qbase load a thread; ends with a barrier.
+__device__ void list_quads(const Args<uint8_t>& a, int b, int t, int64_t c0,
+                           int64_t qhi, QuadLists& L) {
+  if (threadIdx.x < 2) L.n[threadIdx.x] = 0;
+  __syncthreads();
+  const int64_t q = c0 + threadIdx.x;
+  if (threadIdx.x < kChunk && q < qhi) {
+    const int qb = __ldg(a.qbase + (size_t)b * a.MAXQ + q);
+    const bool lists[2] = {qb < a.RLP,
+                           (int64_t)qb + 127 >= a.RLP
+                               && qb < (int64_t)a.RLP + (int64_t)t * 128};
+    for (int p = 0; p < 2; ++p)
+      if (lists[p]) {
+        const int k = atomicAdd(&L.n[p], 1);
+        L.q[p][k] = (int)q;
+        L.qb[p][k] = qb;
+      }
+  }
+  __syncthreads();
+}
+
+// Adds into the shared tile the slots of the n listed quads (lq, lqb:
+// quad, qbase) whose source row this pass reads: kOut false, window rows
+// < RLP (lit8[b], or v27's flat rows at loff[b]); kOut true, window rows
+// RLP + r with r below t*128, this block's stored output. No barrier.
+template <bool kFlat, bool kOut>
+__device__ void add_batches(const Args<uint8_t>& a, int b, int t,
+                            const int* lq, const int* lqb, int n,
+                            int32_t* tile) {
+  constexpr int kParts = kOut ? kOutParts : 1;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int nwarps = blockDim.x >> 5;
+  const int32_t* pc_b = a.pctrl + (size_t)b * a.K * a.G32 * kRowBytes;
+  const uint8_t* tq_b = a.tq + (size_t)b * a.MAXQ * kRowBytes;
+  const int64_t stored = (int64_t)t * 128;
+  // pass 1: window row r is row lit_base + r of lit8, readable below
+  // lit_end (v27: 0 for a block with loff < 0); pass 2: output row r - RLP
+  int64_t lit_base = (int64_t)b * a.RLP;
+  int64_t lit_end = lit_base + a.RLP;
+  if (kFlat) {
+    lit_base = a.loff[b];
+    lit_end = lit_base < 0 ? 0 : a.rows_tot;
+  }
+  const uint8_t* rows = kOut ? a.out + (size_t)b * a.NT * 128 * kRowBytes
+                             : a.lit8;
+
+  // one item = part it % kParts of the 32 slots 32u..32u+31 of a listed
+  // quad q (batch bat = 4q + u); every branch on a slot's values below is
+  // taken by the whole warp
+  for (int it = warp; it < 4 * kParts * n; it += nwarps) {
+    const int q = lq[it / (4 * kParts)];
+    const int64_t qb = lqb[it / (4 * kParts)];
+    const int u = (it / kParts) & 3;
+    const int bat = 4 * q + u;
+    const int i = 32 * u + lane;
+    uint32_t w[kRegPlanes];
+    bool covers = a.K > kRegPlanes;   // planes past kRegPlanes: not checked
+#pragma unroll
+    for (int j = 0; j < kRegPlanes; ++j) {
+      w[j] = j < a.K ? (uint32_t)__ldg(
+          pc_b + ctrl_index<kPlaneMajor>(j, bat, i, a.K, a.G32)) : 0u;
+      covers |= j < a.K && ((w[j] >> 7) & 127) <= ((w[j] >> 14) & 127);
+    }
+    const int tgt = __ldg(tq_b + (size_t)q * kRowBytes + i);
+    const uint32_t rowrel = w[0] >> 21;
+    const int64_t src = qb + rowrel;
+    const int64_t row = kOut ? src - a.RLP : lit_base + src;
+    const bool readable = kOut
+        ? src >= a.RLP && row < stored
+        : src >= 0 && src < a.RLP && row >= 0 && row < lit_end;
+    unsigned todo = __ballot_sync(
+        kFull, covers && rowrel < 128 && tgt < 128 && readable);
+    if (kParts > 1)
+      todo &= (kFull >> (32 - 32 / kParts)) << (32 / kParts * (it % kParts));
+    const uint32_t my_row = (uint32_t)row;   // < 2^32 wherever readable
+
+    while (todo) {
+      // the next kInflight slots: all their rows first, then the adds
+      uint32_t word[kInflight];
+      unsigned batch = 0;
+#pragma unroll
+      for (int n = 0; n < kInflight; ++n) {
+        const int s = todo ? __ffs(todo) - 1 : -1;
+        todo &= todo - 1;
+        batch |= s < 0 ? 0u : 1u << s;
+        const uint32_t r = __shfl_sync(kFull, my_row, s < 0 ? 0 : s);
+        const uint32_t* p = reinterpret_cast<const uint32_t*>(
+            rows + (size_t)r * kRowBytes) + lane;
+        word[n] = s < 0 ? 0u : kOut ? __ldcg(p) : __ldg(p);
+      }
+#pragma unroll
+      for (int n = 0; n < kInflight; ++n) {
+        const int s = batch ? __ffs(batch) - 1 : -1;
+        batch &= batch - 1;
+        if (s < 0) break;
+        const int tg = __shfl_sync(kFull, tgt, s);
+        uint32_t val = 0, cover = 0;
+#pragma unroll
+        for (int j = 0; j < kRegPlanes; ++j)
+          if (j < a.K)
+            apply_plane(__shfl_sync(kFull, w[j], s), word[n], lane, val,
+                        cover);
+        for (int j = kRegPlanes; j < a.K; ++j)
+          apply_plane((uint32_t)__ldg(pc_b + ctrl_index<kPlaneMajor>(
+                          j, bat, 32 * u + s, a.K, a.G32)),
+                      word[n], lane, val, cover);
+        int32_t* trow = tile + tg * kRowBytes + 4 * lane;
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int v = (val >> (8 * c)) & 0xff;
+          if (((cover >> (8 * c)) & 0xff) && v) atomicAdd(trow + c, v);
+        }
+      }
+    }
+  }
+}
+
+// sync: [0] the ticket, then B*NT ready flags (b-major), all 0 at launch
+template <bool kFlat>
+__global__ void __launch_bounds__(kThreads) self_ref_grid_kernel(
+    Args<uint8_t> a, int B, int32_t* sync) {
+  extern __shared__ int32_t tile[];
+  __shared__ int ticket;
+  __shared__ QuadLists L;
+  if (threadIdx.x == 0) ticket = atomicAdd(sync, 1);
+  for (int k = threadIdx.x; k < 128 * kRowBytes; k += blockDim.x)
+    tile[k] = 0;
+  __syncthreads();
+  const int t = ticket / B;
+  const int b = ticket % B;
+  int32_t* flags = sync + 1 + (size_t)b * a.NT;
+  const int32_t* qs_b = a.qs + (size_t)b * a.QW;
+  int64_t lo, hi;
+  quad_range<kPairs>(qs_b[t], qs_b[t + 1], lo, hi);
+  lo = lo < 0 ? 0 : lo;
+  hi = hi < a.MAXQ ? hi : a.MAXQ;
+
+  // one scan unless the range holds more than kChunk quads
+  bool waited = false;
+  for (int64_t c0 = lo; c0 < hi; c0 += kChunk) {
+    list_quads(a, b, t, c0, hi, L);
+    add_batches<kFlat, false>(a, b, t, L.q[0], L.qb[0], L.n[0], tile);
+    if (L.n[1] > 0) {
+      if (!waited) {
+        // supertiles 0..t-1 of this block hold smaller tickets: their
+        // CTAs are resident or done. A CTA that reads no output rows
+        // does not wait; every reader waits on each flag itself.
+        for (int k = threadIdx.x; k < t; k += blockDim.x)
+          for (int64_t n = 0; ld_acquire(flags + k) == 0; ++n) {
+            if (n == kSpinLimit) __trap();   // a flag that never comes
+            __nanosleep(100);
+          }
+        __syncthreads();
+        waited = true;
+      }
+      add_batches<kFlat, true>(a, b, t, L.q[1], L.qb[1], L.n[1], tile);
+    }
+    __syncthreads();   // the tile's adds are done; the lists are free
+  }
+
+  uint32_t* dst = reinterpret_cast<uint32_t*>(
+      a.out + ((size_t)b * a.NT * 128 + (size_t)t * 128) * kRowBytes);
+  for (int k = threadIdx.x; k < 128 * kRowBytes / 4; k += blockDim.x) {
+    const int32_t* v = tile + 4 * k;
+    dst[k] = (uint32_t)(v[0] & 0xff) | ((uint32_t)(v[1] & 0xff) << 8)
+             | ((uint32_t)(v[2] & 0xff) << 16)
+             | ((uint32_t)(v[3] & 0xff) << 24);
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    st_release(flags + t, 1);
+  }
+}
+
+template <bool kFlat>
+int launch_self_ref_grid(const Args<uint8_t>& a, int B, int32_t* sync,
+                         void* stream) {
+  const cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t e = cudaMemsetAsync(
+      sync, 0, (1 + (size_t)B * a.NT) * sizeof(int32_t), s);
+  if (e != cudaSuccess) return (int)e;
+  const int smem = 128 * kRowBytes * 4;   // int32 tile
+  e = cudaFuncSetAttribute(self_ref_grid_kernel<kFlat>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  self_ref_grid_kernel<kFlat><<<B * a.NT, kThreads, smem, s>>>(a, B, sync);
+  return (int)cudaGetLastError();
+}
+
 template <typename Kernel, typename A>
 int launch(Kernel kernel, dim3 grid, int rows, const A& a, void* stream) {
   const int smem = rows * kRowBytes * 4;   // int32 tile
@@ -343,25 +620,28 @@ int zxc_copy_engine_v25(const int32_t* qs, const int32_t* qbase,
   return launch(self_ref_kernel<kQuadSelfRef>, dim3(B), 128, a, stream);
 }
 
+// v26/v27: sync is the call's scratch of 1 + B*NST int32 (ticket and
+// ready flags), zeroed here on the stream before the launch
 int zxc_copy_engine_v26(const int32_t* qs, const int32_t* qbase,
                         const int32_t* pctrl, const uint8_t* tq,
-                        const uint8_t* lit8, uint8_t* out, int B, int NST,
-                        int MAXQ, int G32, int K, int RLP, void* stream) {
+                        const uint8_t* lit8, uint8_t* out, int32_t* sync,
+                        int B, int NST, int MAXQ, int G32, int K, int RLP,
+                        void* stream) {
   if (B == 0 || NST == 0) return 0;
   Args<uint8_t> a{qs, qbase, nullptr, pctrl, tq, lit8, out,
                   NST, NST + 1, MAXQ, G32, K, RLP, 0};
-  return launch(self_ref_kernel<kSelfRef>, dim3(B), 128, a, stream);
+  return launch_self_ref_grid<false>(a, B, sync, stream);
 }
 
 int zxc_copy_engine_v27(const int32_t* qs, const int32_t* qbase,
                         const int32_t* loff, const int32_t* pctrl,
                         const uint8_t* tq, const uint8_t* flat, uint8_t* out,
-                        int B, int NST, int MAXQ, int G32, int K, int RLP,
-                        int64_t rows_tot, void* stream) {
+                        int32_t* sync, int B, int NST, int MAXQ, int G32,
+                        int K, int RLP, int64_t rows_tot, void* stream) {
   if (B == 0 || NST == 0) return 0;
   Args<uint8_t> a{qs, qbase, loff, pctrl, tq, flat, out,
                   NST, NST + 1, MAXQ, G32, K, RLP, rows_tot};
-  return launch(self_ref_kernel<kFlatSelfRef>, dim3(B), 128, a, stream);
+  return launch_self_ref_grid<true>(a, B, sync, stream);
 }
 
 int zxc_copy_engine_v13(const int32_t* qs, const int32_t* qbase,

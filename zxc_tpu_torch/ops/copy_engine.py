@@ -51,11 +51,14 @@ Bound on the card: the bytes each call must move (``bytes_moved``: ``qs``,
 the live quads' control and the window rows their slots read, each read
 once, and the uint8 output written once) over the H100's 3.35 TB/s; a
 dispatch group of 16 x 64 KiB blocks moves a few MB, a microsecond or
-two. The kernels are far from it: each slot is a
-chain of dependent loads and v26/v27 have one CTA per block (16 CTAs on 132
-SMs). The design keeps the tile in shared memory as int32 with atomic
+two. The kernels are far from it: each slot is a chain of dependent
+loads. The design keeps the tile in shared memory as int32 with atomic
 adds (exact for any control) and lets one warp serve one slot with a
-coalesced row load and register shuffles; see the source for details.
+coalesced row load and register shuffles. v26 and v27 run one CTA per
+(supertile, block): each adds its lit-row slots at once, waits on ready
+flags of its block's earlier supertiles only for the slots that read the
+block's own output, and lets a warp serve 32 slots with several row
+loads in flight; see the source for details.
 
 On a CPU tensor a wrapper runs the plain PyTorch version; on a CUDA
 tensor it launches the kernel or raises. Each wrapper counts its kernel
@@ -304,10 +307,13 @@ def v13_reference(qs, qbase, pctrl, tq, lit8) -> torch.Tensor:
     return _reference(qs, qbase, pctrl, tq, lit8, 1, mode=V13_MODE)
 
 
-def _launch(entry: str, args, B: int, out_rows: int, ints) -> torch.Tensor:
+def _launch(entry: str, args, B: int, out_rows: int, ints,
+            sync_words: int = 0) -> torch.Tensor:
     """Launch ``entry`` over the tensors ``args`` (each contiguous and
-    16-byte aligned), a fresh (B, out_rows, 128) uint8 output and the
-    ints ``ints``, on the current stream."""
+    16-byte aligned), a fresh (B, out_rows, 128) uint8 output, with
+    ``sync_words`` a fresh int32 scratch of that many words after it (v26,
+    v27: the entry zeroes it on the stream), and the ints ``ints``, on the
+    current stream."""
     from . import _build
     dev = args[0].device
     for t in args:
@@ -315,10 +321,13 @@ def _launch(entry: str, args, B: int, out_rows: int, ints) -> torch.Tensor:
             raise ValueError("copy-engine operands must be contiguous and "
                              "16-byte aligned")
     out = torch.empty((B, out_rows, LANES), dtype=torch.uint8, device=dev)
+    scratch = ([torch.empty(sync_words, dtype=torch.int32, device=dev)]
+               if sync_words else [])
     fn = getattr(_build.kernels(), entry)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(*(t.data_ptr() for t in args), out.data_ptr(), *ints, stream)
+        rc = fn(*(t.data_ptr() for t in (*args, out, *scratch)), *ints,
+                stream)
     if rc:
         raise RuntimeError(f"{entry} launch failed: cudaError {rc}")
     return out
@@ -371,7 +380,7 @@ def v26(qs, qbase, pctrl, tq, lit8, K: int = 2) -> torch.Tensor:
         return v26_reference(*args, K)
     B, NST, MAXQ, G32, RLP = _dims(*args, K)
     out = _launch("zxc_copy_engine_v26", args, B, NST * TILE_ROWS,
-                  (B, NST, MAXQ, G32, K, RLP))
+                  (B, NST, MAXQ, G32, K, RLP), 1 + B * NST)
     v26.launches += 1
     return out
 
@@ -387,7 +396,7 @@ def v27(qs, qbase, loff, pctrl, tq, flat, RLP: int, K: int = 2):
     _flat_dims(qs, loff, flat, RLP)
     out = _launch("zxc_copy_engine_v27", (qs, qbase, loff, pctrl, tq, flat),
                   B, NST * TILE_ROWS,
-                  (B, NST, MAXQ, G32, K, RLP, flat.shape[0]))
+                  (B, NST, MAXQ, G32, K, RLP, flat.shape[0]), 1 + B * NST)
     v27.launches += 1
     return out
 
