@@ -580,12 +580,15 @@ def gather_rows_of(P) -> dict:
     idx64 = idx.long()
     for name, fn in (("dma_a", P.dma_a), ("dma_b", P.dma_b),
                      ("dma_c", P.dma_c)):
+        plan = P.row_plan(len(idx), table.shape[1], name[-1])
         out[name] = kernel_row(
             name, probe_source(name), PROBES[name][1],
             lambda fn=fn: fn(table, idx),
             lambda: P.gather_rows_reference(table, idx),
             P.rows_bytes_moved(table, idx),
-            f"table {tuple(table.shape)} int32, idx ({len(idx)},)",
+            f"table {tuple(table.shape)} int32, idx ({len(idx)},), "
+            f"{plan.grid} CTAs of {plan.rows_per_cta} rows, "
+            f"{plan.stages} stages, bulk {plan.bulk}",
             library=lambda: torch.index_select(table, 0, idx64))
     return out
 

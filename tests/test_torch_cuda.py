@@ -2,9 +2,11 @@
 v13, the attic's quad-tile generations as ``quad`` in modes 12, 14-17, 20,
 21, 23 and 24, lcp, parse_walk, the attic's piece-serial kernel, window
 merge and lane sum, and the probes of ``tools/``: v12's quad ablations,
-the lane-sum probes and the gathers) against its plain PyTorch version on
-the card, on valid and on garbage control, misaligned or non-contiguous
-operands refused; v26 and v27 also on a (supertile, block) grid larger
+the lane-sum probes and the gathers, the row gather's forms also on
+unaligned, long-row and empty tables, indices outside the table and a
+reused output block) against its plain PyTorch version on the card, on
+valid and on garbage control, misaligned or non-contiguous operands
+refused; v26 and v27 also on a (supertile, block) grid larger
 than the card holds at once, on plans with the longest dependency chain
 and with reads on both sides of the stored-row boundary, and over
 repeated launches on one stream and on two; and the cold, hint, serial, v25 and attic decodes
@@ -948,3 +950,86 @@ def test_gathers_equal_plain_version_on_card(card, dtype):
             before = fn.launches
             assert torch.equal(fn(table, idx), want)
             assert fn.launches == before + 1
+
+
+def _row_case(case: str, card):
+    """(table, idx) of one row-gather edge case; indices partly outside
+    the table."""
+    rng = np.random.default_rng(len(case))
+    R, C, G = {"c3": (500, 3, 1024), "c12000": (300, 12000, 200),
+               "offset": (4096, 128, 1024), "r0": (0, 128, 64),
+               "outside": (4096, 128, 1024)}[case]
+    lo, hi = (-5, R + 5) if case != "outside" else (-2**31, 2**31)
+    idx = torch.from_numpy(rng.integers(lo, hi, G).astype(np.int32)).to(card)
+    vals = rng.integers(-2**31, 2**31, R * C + 1).astype(np.int32)
+    if case == "offset":     # a view 4 bytes into its storage
+        table = torch.from_numpy(vals).to(card)[1:].view(R, C)
+        assert table.is_contiguous() and table.data_ptr() % 16 == 4
+    else:
+        table = torch.from_numpy(vals[:R * C].reshape(R, C)).to(card)
+    return table, idx
+
+
+@pytest.mark.parametrize("case", ["c3", "c12000", "offset", "r0",
+                                  "outside"])
+def test_row_gather_edges_on_card(card, case):
+    """Forms a, b and c on unaligned 12-byte rows, rows longer than one
+    stage, a table 4 bytes into its storage, an empty table and indices
+    spread over int32: equal to the plain version, one launch a call."""
+    from zxc_tpu_torch.ops import probes as P
+    table, idx = _row_case(case, card)
+    want = P.gather_rows_reference(table, idx)
+    C = table.shape[1]
+    bulk = P.row_plan(len(idx), C, "a", table.data_ptr() % 16 == 0).bulk
+    assert bulk == (case in ("c12000", "outside", "r0"))
+    if case == "c12000":
+        assert 4 * C > P.STAGE_BYTES     # rows longer than one stage
+    for form, fn in P.ROW_ENTRIES.items():
+        before = fn.launches
+        got = fn(table, idx)
+        torch.cuda.synchronize()
+        assert fn.launches == before + 1
+        assert torch.equal(got, want), form
+
+
+def test_row_gather_reused_output_block_on_card(card):
+    """Two calls in a row: the second gets the first's output block from
+    the caching allocator, and its rows of 0 and its rows from the table
+    must both be its own."""
+    from zxc_tpu_torch.ops import probes as P
+    rng = np.random.default_rng(11)
+    table = torch.from_numpy(rng.integers(1, 2**31, (4096, 128)).astype(
+        np.int32)).to(card)
+    first = torch.from_numpy(rng.integers(0, 4096, 1024).astype(
+        np.int32)).to(card)
+    second = torch.from_numpy(rng.integers(-600, 4096, 1024).astype(
+        np.int32)).to(card)
+    want = P.gather_rows_reference(table, second)
+    for form, fn in P.ROW_ENTRIES.items():
+        out = fn(table, first)
+        ptr = out.data_ptr()
+        del out
+        before = fn.launches
+        got = fn(table, second)
+        torch.cuda.synchronize()
+        assert got.data_ptr() == ptr, "the allocator did not reuse the block"
+        assert fn.launches == before + 1
+        assert torch.equal(got, want), form
+
+
+def test_row_gather_refuses_a_bad_geometry_on_card(card):
+    from zxc_tpu_torch.ops import probes as P
+    table = torch.zeros((64, 128), dtype=torch.int32, device=card)
+    idx = torch.arange(64, dtype=torch.int32, device=card)
+    out = torch.empty((64, 128), dtype=torch.int32, device=card)
+    for form in "abc":
+        plan = P.row_plan(64, 128, form)
+        P._launch_rows(table, idx, out, form, plan)
+        for bad in (dict(grid=plan.grid + 1), dict(smem=plan.smem + 16),
+                    dict(stages=9), dict(piece=129)):
+            if form == "b" and "grid" not in bad:
+                continue
+            with pytest.raises(RuntimeError, match="cudaError 1"):
+                P._launch_rows(table, idx, out, form, plan._replace(**bad))
+    torch.cuda.synchronize()
+    assert torch.equal(out, table)

@@ -99,7 +99,7 @@ def _bind_gather(L, vp, ci) -> None:
     L.zxc_gather_axis1.restype = ci
     L.zxc_gather_axis1.argtypes = [vp] * 3 + [ci, ci, i64, ci, i64, vp]
     L.zxc_gather_rows.restype = ci
-    L.zxc_gather_rows.argtypes = [vp, ci, ci, vp, ci, vp, ci, vp]
+    L.zxc_gather_rows.argtypes = [vp, ci, ci, vp, ci, vp] + [ci] * 7 + [vp]
 
 
 def kernels() -> ctypes.CDLL:

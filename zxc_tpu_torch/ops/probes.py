@@ -23,9 +23,10 @@ its plain version and run by a hand-written kernel:
 * ``gather_axis1`` and ``gather_grid`` (``tools/tpu_pallas_gather_probe.py``):
   ``out[i, j] = x[i, idx[i, j]]``, the grid form walking index tiles.
 * ``gather_rows`` (``tools/tpu_indirect_dma_probe.py``, ``build_a/b/c``):
-  ``out[i] = table[idx[i]]``, by one row at a time (``dma_a``), all rows
-  at once (``dma_b``) or double-buffered rows (``dma_c``);
-  ``csrc/gather.cu``.
+  ``out[i] = table[idx[i]]``, by bulk async row copies one at a time a CTA
+  (``dma_a``), one CTA a row all at once (``dma_b``) or bulk row copies
+  pipelined through a ring of stages a CTA (``dma_c``), over the grid of
+  ``row_plan``; ``csrc/gather.cu``.
 
 An index outside its table reads 0 (the JAX kernels leave it undefined).
 Inputs are the probes' own: the packers' groups (``serial.pack_blocks_v12``
@@ -37,6 +38,8 @@ kernel or raises, counting launches in ``.launches`` (the row gather's
 forms each in their own entry's counter).
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -50,6 +53,13 @@ V10_PROBE_MODES = ("full", "norotate", "nobcast", "noonehot", "nomatmul")
 V12_ABLATE_MODES = ("full", "nomatmul", "norotate", "nomask", "floor")
 V12_MODE = CE.QUAD_MODES[12]
 ROW_FORMS = {"a": 0, "b": 1, "c": 2}     # build_a, build_b, build_c
+# The row gather's geometry for forms a and c (build_a, build_c), chosen by
+# measurement on the card (``python3 -m zxc_tpu_torch.row_gather_sweep``;
+# PERF.md, P6): output rows a CTA and stages a CTA at the probe's shape,
+# the largest piece of a row one bulk copy moves on 48,000-byte rows.
+ROWS_PER_CTA = {"a": 1, "c": 2}
+STAGES = {"a": 1, "c": 2}
+STAGE_BYTES = 8192
 
 
 # -- quad probes: tpu_v13_bisect.py, tpu_v12_ablate2.py ----------------------
@@ -290,11 +300,63 @@ def gather_rows_reference(table, idx) -> torch.Tensor:
     return torch.where(ok[:, None], got, 0).to(table.dtype)
 
 
+class RowPlan(NamedTuple):
+    """The launch geometry of the row gather ``zxc_gather_rows`` takes:
+    ``grid`` CTAs, each copying output rows ``[k * rows_per_cta, (k + 1)
+    * rows_per_cta)`` of the G rows (form b: one CTA a row); a row of C
+    words in pieces of at most ``piece`` words, each through one of
+    ``stages`` shared-memory stages when ``bulk``, else by the CTA's
+    threads with plain loads; ``smem`` bytes of dynamic shared memory."""
+    G: int
+    C: int
+    grid: int
+    rows_per_cta: int
+    piece: int
+    stages: int
+    bulk: bool
+    smem: int
+
+
+def _row_plan(G: int, C: int, aligned: bool, rows_per_cta: int,
+              stages: int, stage_bytes: int) -> RowPlan:
+    """Forms a and c at the given geometry (``row_gather_sweep`` tries
+    others than the constants)."""
+    bulk = aligned and C % 4 == 0
+    piece = min(C, stage_bytes // 16 * 4)
+    head = -(-(8 * stages + 4 * rows_per_cta) // 128) * 128
+    return RowPlan(G, C, -(-G // rows_per_cta), rows_per_cta, piece,
+                   stages, bulk, head + (4 * piece * stages if bulk else 0))
+
+
+def row_plan(G: int, C: int, form: str, aligned: bool = True) -> RowPlan:
+    """The geometry of a row gather of G rows of C int32 words in ``form``;
+    ``aligned``: the table and the output start on 16 bytes. Forms a and c
+    copy rows by bulk copies only when every row is 16-byte aligned and a
+    multiple of 16 bytes, else by the kernel's edge path."""
+    if form not in ROW_FORMS:
+        raise ValueError(f"row gather form {form}: a, b or c")
+    if form == "b":
+        return RowPlan(G, C, G, 1, C, 0, False, 0)
+    return _row_plan(G, C, aligned, ROWS_PER_CTA[form], STAGES[form],
+                     STAGE_BYTES)
+
+
+def _launch_rows(table, idx, out, form: str, plan: RowPlan) -> None:
+    from . import _build
+    with torch.cuda.device(table.device):
+        attic._launch("zxc_gather_rows", _build.gather_kernels()
+                      .zxc_gather_rows, table.data_ptr(), len(table),
+                      plan.C, idx.data_ptr(), plan.G, out.data_ptr(),
+                      ROW_FORMS[form], plan.grid, plan.rows_per_cta,
+                      plan.piece, plan.stages, int(plan.bulk), plan.smem)
+
+
 def gather_rows(table, idx, form: str) -> torch.Tensor:
     """``tpu_indirect_dma_probe``'s row gather in ``form`` "a" (one row
-    at a time), "b" (all rows at once) or "c" (double-buffered rows): the
-    CUDA kernel for CUDA tensors, the plain version for CPU tensors. The
-    launch counts in ``dma_a``, ``dma_b`` or ``dma_c``."""
+    at a time a CTA), "b" (all rows at once) or "c" (rows pipelined a
+    CTA), over the grid of ``row_plan``: the CUDA kernel for CUDA
+    tensors, the plain version for CPU tensors. The launch counts in
+    ``dma_a``, ``dma_b`` or ``dma_c``."""
     if form not in ROW_FORMS:
         raise ValueError(f"row gather form {form}: a, b or c")
     if not CE._on_card("gather_rows", table):
@@ -303,20 +365,16 @@ def gather_rows(table, idx, form: str) -> torch.Tensor:
     for t in (table, idx):
         if not t.is_contiguous():
             raise ValueError("gather_rows operands must be contiguous")
-    from . import _build
-    R, C = table.shape
-    out = torch.empty((len(idx), C), dtype=table.dtype, device=table.device)
-    with torch.cuda.device(table.device):
-        attic._launch("zxc_gather_rows", _build.gather_kernels()
-                      .zxc_gather_rows, table.data_ptr(), R, C,
-                      idx.data_ptr(), len(idx), out.data_ptr(),
-                      ROW_FORMS[form])
+    G, C = len(idx), table.shape[1]
+    out = torch.empty((G, C), dtype=table.dtype, device=table.device)
+    aligned = table.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
+    _launch_rows(table, idx, out, form, row_plan(G, C, form, aligned))
     ROW_ENTRIES[form].launches += 1
     return out
 
 
 def dma_a(table, idx) -> torch.Tensor:
-    """``build_a``: one row DMA after another."""
+    """``build_a``: one bulk row copy after another, a CTA."""
     return gather_rows(table, idx, "a")
 
 
@@ -326,7 +384,8 @@ def dma_b(table, idx) -> torch.Tensor:
 
 
 def dma_c(table, idx) -> torch.Tensor:
-    """``build_c``: row DMAs double-buffered."""
+    """``build_c``: bulk row copies pipelined through a ring of stages, a
+    CTA."""
     return gather_rows(table, idx, "c")
 
 
