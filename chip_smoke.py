@@ -36,7 +36,10 @@ Phases, in order; any failure exits non-zero before the result line:
    v10's) on the same blocks, and the gathers at the probes' largest
    shapes, beside ``torch.gather`` / ``torch.index_select``;
    lcp and parse_walk: the first 16 blocks of the corpus at level 3 as
-   ``ops/encode.py`` feeds them): equal output, the kernel's median time
+   ``ops/encode.py`` feeds them, and parse_walk also on steps of 5 where
+   its walks never meet, with the rounds its chunks took to converge
+   (``encode_kernels.walk_rounds``); the grid gather with its form and
+   cluster geometry (``probes.grid_plan``)): equal output, the kernel's median time
    over CUDA-event-timed launches, the plain version's time and the bytes
    bound (``copy_engine.bytes_moved``: the group's live control and the
    window rows it reads, read once, and the output written once;
@@ -46,7 +49,7 @@ Phases, in order; any failure exits non-zero before the result line:
    ``encode_kernels.lcp_bytes_moved`` / ``walk_bytes_moved``; over
    3.35 TB/s), the time a call of 20 queued back to back behind a spin
    (an event pair around one call of an idle card also holds the host's
-   launch path), and the walk's dependent chain;
+   launch path), and the walk's dependent chain, a statistic;
 4. the main paths, each with every launch counter set to 0 just before
    and read just after; each output must equal the corpus (or its range)
    and each path's kernel must have launched once per group and no other
@@ -569,12 +572,18 @@ def gather_rows_of(P) -> dict:
     M, N, NI, T = GRID_SHAPE
     x, idx = gather_inputs(1, M, N, NI)
     idx64 = idx.long()
+    plan = P.gather_grid_plan(x, idx, torch.empty_like(idx))
+    print(f"gather_grid: {plan.form} form, clusters of {plan.K} CTAs, "
+          f"{plan.clusters} a row, {plan.slice * plan.esize} bytes of the "
+          f"row a CTA, {plan.cols} index columns a cluster; {plan}",
+          flush=True)
     out["gather_grid"] = kernel_row(
         "gather_grid", probe_source("gather_grid"),
         PROBES["gather_grid"][1], lambda: P.gather_grid(x, idx, T),
         lambda: P.gather_axis1_reference(x, idx),
         P.gather_bytes_moved(x, idx),
-        f"x ({M}, {N}) int32, idx ({M}, {NI}), tile {T}",
+        f"x ({M}, {N}) int32, idx ({M}, {NI}), tile {T}; {plan.form} form, "
+        f"K={plan.K}, {plan.clusters * plan.K * M} CTAs",
         library=lambda: torch.gather(x, 1, idx64))
     table, idx = dma_inputs()
     idx64 = idx.long()
@@ -865,17 +874,34 @@ def main() -> None:
         f"B={DISPATCH} n={BLOCK} K={params.n_candidates} "
         f"pairs={pc.numel()}")}
     lens = ENC.find_matches_device_lcp_batch(grp, params.n_candidates)[0]
-    step = ENC.walk_steps(lens, params.lazy, params.min_emit)
-    chain = EK.walk_chain(step)
-    enc_rows["parse_walk"] = kernel_row(
+    walk_steps = {"corpus": ENC.walk_steps(lens, params.lazy,
+                                           params.min_emit),
+                  "all5": torch.full((DISPATCH, BLOCK), 5, dtype=torch.int32,
+                                     device="cuda")}
+
+    def walk_row(mode):
+        step = walk_steps[mode]
+        chain = EK.walk_chain(step)
+        rounds = EK.walk_rounds(step).cpu().numpy()
+        print(f"parse_walk {mode}: rounds to converge by block "
+              f"{rounds[:, 0].tolist()}, serial finish from chunk "
+              f"{rounds[:, 1].tolist()} (-1: none); {EK.walk_plan(BLOCK)}",
+              flush=True)
+        row = kernel_row(
+            "parse_walk", ENC_SOURCE, ENC_REPLACES["parse_walk"],
+            lambda: EK.parse_walk(step),
+            lambda: EK.parse_walk_reference(step),
+            EK.walk_bytes_moved(step),
+            f"{mode}: B={DISPATCH} P={BLOCK} chain max {chain.max()} mean "
+            f"{chain.mean():.0f} steps", diff=walk_err)
+        print(f"parse_walk {mode}: {row['b2b_ms'] * 1e6 / chain.max():.2f} ns"
+              " back to back per step of the longest chain", flush=True)
+        return row
+
+    enc_rows["parse_walk"] = modes_row(
         "parse_walk", ENC_SOURCE, ENC_REPLACES["parse_walk"],
-        lambda: EK.parse_walk(step), lambda: EK.parse_walk_reference(step),
-        EK.walk_bytes_moved(step),
-        f"B={DISPATCH} P={BLOCK} chain max {chain.max()} mean "
-        f"{chain.mean():.0f} steps", diff=walk_err)
-    print(f"parse_walk: {enc_rows['parse_walk']['ms'] * 1e6 / chain.max():.1f}"
-          " ns per step of the longest chain", flush=True)
-    del grp, pc, lens, step
+        ("corpus", "all5"), walk_row)
+    del grp, pc, lens, walk_steps
 
     # -- 4. the main paths -------------------------------------------------
     fp_host = host_fingerprint(data, BLOCK)

@@ -437,6 +437,72 @@ def test_parse_walk_equals_plain_version_on_card(card, garbage):
         assert torch.equal(torch.where(live, pos, 0), rp)
 
 
+@pytest.mark.parametrize("name,B", [
+    ("all5", 16), ("all3", 16), ("all2", 16), ("half5", 16),
+    ("ones_then3", 16), ("jumps", 16), ("odd_p", 3), ("p200k", 2),
+    ("p200k_all5", 2), ("p200k_jumps", 2), ("p200k_garbage", 2)])
+def test_parse_walk_schedules_on_card(card, name, B):
+    """The parallel walk on steps where walks never meet (all 5, all 3, in
+    half the row), with more records than pos holds (all 2), jumps over
+    whole chunks, P off the chunk size and rows of 200,000 steps (the
+    global-memory form, garbage steps included): one launch a call, equal
+    to the plain version, and the rounds and serial finish of the numpy
+    model of ``tests/test_torch_walk_schedule.py``."""
+    from zxc_tpu_torch.ops import encode_kernels as EK
+    from test_torch_walk_schedule import inputs, walk_model
+    if name == "p200k_garbage":
+        rng = np.random.default_rng(5)
+        rows = rng.integers(-5, 12, (B, 200_000))
+        rows[1, ::7] = rng.integers(-2**31, 2**31 - 1, len(rows[1, ::7]))
+    else:
+        row = inputs(name)
+        rows = np.stack([np.roll(row, 5 * b) if b % 2 else row
+                         for b in range(B)])
+    step = torch.from_numpy(rows.astype(np.int32)).to(card)
+    assert EK.walk_plan(step.shape[1]).shared == (step.shape[1] <= 65536)
+    before = EK.parse_walk.launches
+    nseq, pos = EK.parse_walk(step)
+    torch.cuda.synchronize()
+    assert EK.parse_walk.launches == before + 1
+    rn, rp = EK.parse_walk_reference(step)
+    live = EK.walk_defined(rn, rp.shape[1])
+    assert torch.equal(nseq, rn)
+    assert torch.equal(torch.where(live, pos, 0), rp)
+    stats = EK.walk_rounds(step).cpu().numpy()
+    for b in range(B):
+        n, _, rounds, serial_from = walk_model(rows[b])
+        assert n == int(rn[b])
+        assert stats[b].tolist() == [rounds, serial_from], b
+
+
+def test_parse_walk_refuses_a_bad_geometry_on_card(card):
+    from zxc_tpu_torch.ops import _build, encode_kernels as EK
+    P = 70_000
+    step = torch.ones((2, P), dtype=torch.int32, device=card)
+    nseq = torch.empty(2, dtype=torch.int32, device=card)
+    pos = torch.empty((2, P // 5 + 1), dtype=torch.int32, device=card)
+    bits = torch.empty((2, 2 * -(-P // 32)), dtype=torch.int32, device=card)
+    fn = _build.encode_kernels().zxc_parse_walk
+    stream = torch.cuda.current_stream().cuda_stream
+    good = EK.walk_plan(P)
+
+    def launch(n, chunk, shared, smem, rounds=EK.WALK_MAX_ROUNDS,
+               scratch=bits):
+        return fn(step.data_ptr(), nseq.data_ptr(), pos.data_ptr(),
+                  None if scratch is None else scratch.data_ptr(), None, 2,
+                  n, P // 5 + 1, chunk, shared, smem, rounds, stream)
+
+    assert launch(P, good.chunk, 0, 0) == 0
+    for args in ((P, 48, 0, 0), (P, 0, 0, 0), (P, 32, 0, 0),
+                 (P, good.chunk, 1, EK.walk_plan(P).smem),
+                 (P, good.chunk, 0, 16), (P, good.chunk, 0, 0, 0),
+                 (P, good.chunk, 0, 0, 1, None),
+                 (4096, 32, 1, EK.walk_plan(4096).smem + 16)):
+        assert launch(*args) == 1, args
+    torch.cuda.synchronize()
+    assert nseq.tolist() == [0, 0]
+
+
 @pytest.mark.parametrize("level", [1, 3, 5])
 def test_compress_device_on_card_equals_cpu(card, level):
     from zxc_tpu_torch.ops import encode_kernels as EK
@@ -950,6 +1016,80 @@ def test_gathers_equal_plain_version_on_card(card, dtype):
             before = fn.launches
             assert torch.equal(fn(table, idx), want)
             assert fn.launches == before + 1
+
+
+GRID_CASES = {  # x (M, N), idx columns, dtype, form, K
+    "probe": ((8, 1 << 16), 1 << 19, torch.int32, "cluster", 2),
+    "m64": ((64, 1 << 16), 1 << 16, torch.int32, "cluster", 2),
+    "u8": ((8, 1 << 16), 1 << 16, torch.uint8, "cluster", 1),
+    "u8_k4": ((2, 600_000), 1 << 15, torch.uint8, "cluster", 4),
+    "n1000": ((3, 1000), 4096, torch.int32, "cluster", 1),
+    "n1000_u8": ((8, 1000), 8192, torch.uint8, "cluster", 1),
+    "x_offset": ((4, 3000), 8192, torch.int32, "cluster", 1),
+    "idx_offset": ((8, 1 << 16), 1 << 15, torch.int32, "cluster", 2),
+    "u8_ragged": ((4, 5000), 4104, torch.uint8, "cluster", 1),
+    "big": ((2, 1 << 20), 1 << 20, torch.int32, "l2", 1),
+    "big_offset": ((2, 1 << 20), 1 << 16, torch.int32, "l2", 1),
+    "n0": ((3, 0), 4096, torch.int32, "l2", 1),
+}
+
+
+@pytest.mark.parametrize("case", list(GRID_CASES))
+def test_gather_grid_forms_on_card(card, case):
+    """The grid gather's cluster form (the probe's shape, 64 rows, uint8
+    rows in clusters of 1 and 4, N = 1000 with rows off 16-byte alignment,
+    a table and an index view 4 bytes into their storage, uint8 columns
+    that are no multiple of 16) and its L2 form (a row of 4 MiB, also with
+    an index view 4 bytes off alignment, and an empty row), with indices
+    outside the row: one launch a call, equal to the plain version."""
+    from zxc_tpu_torch.ops import probes as P
+    (M, N), NI, dtype, form, K = GRID_CASES[case]
+    rng = np.random.default_rng(len(case))
+    vals = rng.integers(0, 256, M * N + 1)
+    x = torch.from_numpy(vals).to(dtype).to(card)
+    x = (x[1:] if case == "x_offset" else x[:M * N]).view(M, N)
+    ids = rng.integers(-5, N + 5, M * NI + 1)
+    ids[::97] = rng.integers(-2**31, 2**31 - 1, len(ids[::97]))
+    idx = torch.from_numpy(ids.astype(np.int32)).to(card)
+    idx = (idx[1:] if case.endswith("idx_offset") or case == "big_offset"
+           else idx[:M * NI]).view(M, NI)
+    assert x.is_contiguous() and idx.is_contiguous()
+    if case == "x_offset":
+        assert x.data_ptr() % 16 == 4
+    if case in ("idx_offset", "big_offset"):
+        assert idx.data_ptr() % 16 == 4
+    plan = P.grid_plan(M, N, NI, x.element_size(), idx.data_ptr() % 16 == 0,
+                       torch.cuda.get_device_properties(card)
+                       .multi_processor_count)
+    assert (plan.form, plan.K) == (form, K)
+    assert plan.vec == (case in ("big", "n0"))
+    tile = NI // 4 if NI % 4 == 0 else NI
+    before = P.gather_grid.launches
+    got = P.gather_grid(x, idx, tile)
+    torch.cuda.synchronize()
+    assert P.gather_grid.launches == before + 1
+    assert torch.equal(got, P.gather_axis1_reference(x, idx))
+
+
+def test_gather_grid_refuses_a_bad_geometry_on_card(card):
+    from zxc_tpu_torch.ops import probes as P
+    x = torch.zeros((8, 65536), dtype=torch.int32, device=card)
+    idx = torch.zeros((8, 1 << 15), dtype=torch.int32, device=card)
+    out = torch.empty_like(idx)
+    plan = P.grid_plan(8, 65536, 1 << 15, 4)
+    P._launch_grid(x, idx, out, plan)
+    l2 = P.GridPlan(8, 65536, 1 << 15, 4, "l2", 1, 8, 0, 4096, True, 0)
+    P._launch_grid(x, idx, out, l2)
+    for bad in (plan._replace(K=3), plan._replace(smem=plan.smem + 16),
+                plan._replace(slice=plan.slice - 4, smem=plan.smem - 16),
+                plan._replace(vec=True), plan._replace(clusters=0),
+                plan._replace(cols=plan.cols - 1), l2._replace(cols=2048),
+                l2._replace(clusters=7), l2._replace(K=2),
+                l2._replace(smem=16)):
+        with pytest.raises(RuntimeError, match="cudaError 1"):
+            P._launch_grid(x, idx, out, bad)
+    torch.cuda.synchronize()
+    assert torch.equal(out, torch.zeros_like(out))
 
 
 def _row_case(case: str, card):

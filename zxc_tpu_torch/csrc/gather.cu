@@ -19,9 +19,32 @@
 // the probes' shapes (at most 2 MB) stay in the 50 MB L2, so the floor is
 // the index read and the output write at 3.35 TB/s, plus the table's
 // distinct elements read once. Design: gather_axis1 is one thread an
-// element, coalesced along the index row, CTAs over (column tile, row);
-// the grid form has one CTA a column tile walk all M rows, as the TPU grid
-// walks its steps. Form b of the row gather is one CTA a row, all at once.
+// element, coalesced along the index row, CTAs over (column tile, row).
+// Form b of the row gather is one CTA a row, all at once.
+//
+// The grid form (gather_grid) follows the card, not the TPU grid's steps;
+// its `tile` is only checked. A random 4-byte table read costs the L2 a
+// 32-byte sector, so reading the table from L2 moves 8x the output's bytes.
+// Its cluster form holds the row in shared memory instead: a cluster of K
+// <= 8 CTAs (1024 threads each) is assigned one row i and a run of its
+// index columns; each CTA fills its contiguous slice of the row (`slice`
+// elements, at most 200 KiB) by cp.async.bulk copies of 16 KiB, all in
+// flight on one mbarrier, where the slice's start is 16-byte aligned
+// (plain loads for the rest). Then every CTA of the cluster reads all the
+// cluster's index columns, 16 a thread at a time (coalesced 4-byte loads,
+// all issued before the reads), and answers the indices of its own slice
+// from its own shared memory; rank 0 writes 0 for indices outside the row.
+// The cluster runs its CTAs at once, so one of them reads an index line
+// from HBM and the others find it in L2. Reading the other CTAs' slices
+// through distributed shared memory instead (mapa, ld.shared::cluster)
+// was measured: random 4-byte remote reads took half the kernel's time
+// (walk_gather_ab.py --ablate, grid_dsmem). Enough clusters a row fill the
+// card's SMs (probes.grid_plan). Its L2 form, for rows too large for a
+// cluster, takes CTAs of 256 threads over (4096-column chunk, row); each
+// thread issues its 16 index loads and 16 table loads before its stores,
+// with 16-byte index loads and output stores where the rows are aligned.
+// Index and output streams of the L2 form are loaded and stored
+// evict-first so the table keeps its place in L2.
 //
 // Forms a and c are schedules of the card's DMA engine, the bulk-copy unit
 // of the Tensor Memory Accelerator, over a grid of CTAs of 128 threads.
@@ -47,6 +70,7 @@
 // ms of bytes) no form reaches its bound: what is left is the launch, the
 // first index load and one load-store round trip per row of a CTA's run.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -55,21 +79,18 @@ namespace {
 constexpr int kThreads = 256;
 constexpr long long kAxisTile = 4096;   // index columns a CTA of gather_axis1
 
+// grid (ceil(NI / 4096), M)
 template <typename T>
 __global__ void __launch_bounds__(kThreads) gather_axis1_kernel(
     const T* __restrict__ x, const int32_t* __restrict__ idx,
-    T* __restrict__ out, int M, int N, long long NI, long long tile,
-    int rows_per_cta) {
-  const long long c0 = (long long)blockIdx.x * tile;
-  const long long c1 = min(c0 + tile, NI);
-  const int r0 = blockIdx.y * rows_per_cta;
-  const int r1 = min(r0 + rows_per_cta, M);
-  for (int r = r0; r < r1; ++r) {
-    const T* xr = x + (long long)r * N;
-    for (long long j = c0 + threadIdx.x; j < c1; j += blockDim.x) {
-      const int32_t k = idx[(long long)r * NI + j];
-      out[(long long)r * NI + j] = (k >= 0 && k < N) ? xr[k] : T(0);
-    }
+    T* __restrict__ out, int N, long long NI) {
+  const long long c0 = (long long)blockIdx.x * kAxisTile;
+  const long long c1 = min(c0 + kAxisTile, NI);
+  const long long r = blockIdx.y;
+  const T* xr = x + r * N;
+  for (long long j = c0 + threadIdx.x; j < c1; j += blockDim.x) {
+    const int32_t k = idx[r * NI + j];
+    out[r * NI + j] = (k >= 0 && k < N) ? xr[k] : T(0);
   }
 }
 
@@ -214,34 +235,292 @@ __global__ void __launch_bounds__(kRowThreads) gather_rows_bulk_kernel(
   }
 }
 
+// -- the grid form ----------------------------------------------------------
+
+namespace cg = cooperative_groups;
+
+constexpr int kGridThreads = 1024;      // a CTA of the cluster form
+constexpr int kGridL2Threads = 256;     // a CTA of the L2 form
+constexpr int kGridCols = 16;           // index columns a thread takes at once
+constexpr int kMaxCluster = 8;          // the portable cluster size
+constexpr int kMaxSlice = 200 << 10;    // bytes of its row a CTA may hold
+constexpr uint32_t kFillPiece = 16 << 10;   // bytes a bulk copy of the fill
+
+// The cluster form's passes over index columns [j0, j1) of a row: 16
+// columns a thread at a time, strided by the CTA's width (coalesced), all
+// index loads before the reads; an index in [lo, lo + n) reads the CTA's
+// own slice `part` and writes its output, one outside [0, N) writes 0
+// where `zeros`, and any other is left to the CTA that holds it.
+template <typename T>
+__device__ __forceinline__ void owner_passes(
+    const int32_t* __restrict__ ir, T* __restrict__ orow, long long j0,
+    long long j1, const T* part, int lo, int n, int N, bool zeros) {
+  const long long t = threadIdx.x, nt = blockDim.x;
+  for (long long cb = j0; cb < j1; cb += nt * kGridCols) {
+    int32_t k[kGridCols];
+#pragma unroll
+    for (int q = 0; q < kGridCols; ++q) {
+      const long long c = cb + q * nt + t;
+      k[q] = c < j1 ? __ldg(ir + c) : 0;
+    }
+#pragma unroll
+    for (int q = 0; q < kGridCols; ++q) {
+      const long long c = cb + q * nt + t;
+      const uint32_t o = (uint32_t)k[q] - (uint32_t)lo;
+      if (c < j1) {
+        if (o < (uint32_t)n)
+          orow[c] = part[o];
+        else if (zeros && (uint32_t)k[q] >= (uint32_t)N)
+          orow[c] = T(0);
+      }
+    }
+  }
+}
+
+// element k of a row in global memory (through L2), 0 outside [0, N)
+template <typename T>
+struct GlobalTableRow {
+  const T* x;
+  int N;
+  __device__ __forceinline__ T operator()(int k) const {
+    return (unsigned)k < (unsigned)N ? __ldg(x + k) : T(0);
+  }
+};
+
+// A thread's 16 columns of the CTA's pass starting at column cb, of a row
+// whose index and output rows are 16-byte aligned and whose run ends at j1
+// (a multiple of 16 / sizeof(T)): four 16-byte index loads, the 16 table
+// reads, then 16-byte stores. int32: four groups of 4 columns strided by
+// the CTA's width, so each load and store is coalesced; uint8: 16
+// adjacent columns, one 16-byte store.
+template <typename T, typename Row>
+__device__ __forceinline__ void gather_pass_vec(
+    const int32_t* __restrict__ ir, T* __restrict__ orow, long long cb,
+    long long j1, const Row& row) {
+  const long long t = threadIdx.x, nt = blockDim.x;
+  long long c[4];
+  int4 iv[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    c[q] = sizeof(T) == 4 ? cb + (q * nt + t) * 4 : cb + t * 16 + 4 * q;
+    iv[q] = c[q] < j1 ? __ldcs(reinterpret_cast<const int4*>(ir + c[q]))
+                      : make_int4(-1, -1, -1, -1);
+  }
+  T v[16];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    v[4 * q] = row(iv[q].x);
+    v[4 * q + 1] = row(iv[q].y);
+    v[4 * q + 2] = row(iv[q].z);
+    v[4 * q + 3] = row(iv[q].w);
+  }
+  if constexpr (sizeof(T) == 4) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      if (c[q] < j1)
+        __stcs(reinterpret_cast<int4*>(orow + c[q]),
+               make_int4(v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]));
+  } else {
+    uint32_t w[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      w[q] = (uint32_t)v[4 * q] | (uint32_t)v[4 * q + 1] << 8 |
+             (uint32_t)v[4 * q + 2] << 16 | (uint32_t)v[4 * q + 3] << 24;
+    if (c[0] < j1)
+      __stcs(reinterpret_cast<uint4*>(orow + c[0]),
+             make_uint4(w[0], w[1], w[2], w[3]));
+  }
+}
+
+// the same for any alignment: 16 columns strided by the CTA's width
+template <typename T, typename Row>
+__device__ __forceinline__ void gather_pass_scalar(
+    const int32_t* __restrict__ ir, T* __restrict__ orow, long long cb,
+    long long j1, const Row& row) {
+  const long long t = threadIdx.x, nt = blockDim.x;
+  int32_t k[kGridCols];
+#pragma unroll
+  for (int q = 0; q < kGridCols; ++q) {
+    const long long c = cb + q * nt + t;
+    k[q] = c < j1 ? __ldcs(ir + c) : -1;
+  }
+  T v[kGridCols];
+#pragma unroll
+  for (int q = 0; q < kGridCols; ++q) v[q] = row(k[q]);
+#pragma unroll
+  for (int q = 0; q < kGridCols; ++q) {
+    const long long c = cb + q * nt + t;
+    if (c < j1) orow[c] = v[q];
+  }
+}
+
+// grid (K * clusters, M), clusters of (K, 1, 1): CTA rank r of cluster c
+// of row y holds elements [r * slice, (r + 1) * slice) of row y; every CTA
+// of the cluster reads the cluster's index columns [c * cols, (c + 1) *
+// cols) and writes the outputs whose element it holds (rank 0 also those
+// outside the row), so no table read leaves the CTA. The cluster runs its
+// CTAs at once: one reads an index line from HBM, the others find it in L2.
+template <typename T>
+__global__ void __launch_bounds__(kGridThreads) gather_grid_cluster_kernel(
+    const T* __restrict__ x, const int32_t* __restrict__ idx,
+    T* __restrict__ out, int N, long long NI, int slice, long long cols) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ __align__(8) uint64_t bar;
+  const cg::cluster_group cluster = cg::this_cluster();
+  T* part = reinterpret_cast<T*>(smem);
+  const int rank = (int)cluster.block_rank();
+  const long long i = blockIdx.y;
+  const long long lo = (long long)rank * slice;
+  const int n = (int)max(0ll, min((long long)slice, N - lo));
+  const T* src = x + i * N + lo;
+  const uint32_t bytes = (uint32_t)n * sizeof(T);
+  const uint32_t body = ((uintptr_t)src & 15) ? 0u : bytes / 16 * 16;
+  const uint32_t b = shared_addr(&bar);
+  if (body && threadIdx.x == 0) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" :: "r"(b)
+                 : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  if (body && threadIdx.x == 0) {   // in pieces, all in flight at once
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+                 :: "r"(b), "r"(body) : "memory");
+    for (uint32_t o = 0; o < body; o += kFillPiece)
+      asm volatile(
+          "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+          " [%0], [%1], %2, [%3];"
+          :: "r"(shared_addr(part) + o),
+             "l"(global_addr(reinterpret_cast<const char*>(src) + o)),
+             "r"(min(kFillPiece, body - o)), "r"(b)
+          : "memory");
+  }
+  for (int e = body / sizeof(T) + threadIdx.x; e < n; e += blockDim.x)
+    part[e] = src[e];
+  if (body) mbar_wait(b, 0);
+  __syncthreads();   // the slice is in place
+  const long long j0 = (long long)(blockIdx.x / cluster.num_blocks()) * cols;
+  owner_passes(idx + i * NI, out + i * NI, j0, min(j0 + cols, NI), part,
+               (int)lo, n, N, rank == 0);
+}
+
+// grid (ceil(NI / 4096), M)
+template <typename T, bool kVec>
+__global__ void __launch_bounds__(kGridL2Threads) gather_grid_l2_kernel(
+    const T* __restrict__ x, const int32_t* __restrict__ idx,
+    T* __restrict__ out, int N, long long NI) {
+  const long long i = blockIdx.y;
+  const long long cb = (long long)blockIdx.x * kGridL2Threads * kGridCols;
+  const long long j1 = min(cb + kGridL2Threads * kGridCols, NI);
+  const GlobalTableRow<T> row{x + i * N, N};
+  if (kVec)
+    gather_pass_vec(idx + i * NI, out + i * NI, cb, j1, row);
+  else
+    gather_pass_scalar(idx + i * NI, out + i * NI, cb, j1, row);
+}
+
+template <typename T>
+int launch_grid(const void* x, const int32_t* idx, void* out, int M, int N,
+                long long NI, int form, int K, int clusters, int slice,
+                long long cols, int vec, int smem, cudaStream_t s) {
+  const T* xt = static_cast<const T*>(x);
+  T* ot = static_cast<T*>(out);
+  if (form == 0) {
+    const dim3 grid((unsigned)clusters, (unsigned)M);
+    if (vec)
+      gather_grid_l2_kernel<T, true><<<grid, kGridL2Threads, 0, s>>>(
+          xt, idx, ot, N, NI);
+    else
+      gather_grid_l2_kernel<T, false><<<grid, kGridL2Threads, 0, s>>>(
+          xt, idx, ot, N, NI);
+    return (int)cudaGetLastError();
+  }
+  cudaError_t e = cudaFuncSetAttribute(
+      gather_grid_cluster_kernel<T>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(K * clusters), (unsigned)M, 1);
+  cfg.blockDim = dim3(kGridThreads, 1, 1);
+  cfg.dynamicSmemBytes = (size_t)smem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)K;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, gather_grid_cluster_kernel<T>, xt, idx, ot, N,
+                         NI, slice, cols);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
 // Returns a cudaError_t (0 = launched) and launches on `stream`. Checked by
 // the Python wrapper: x (M, N) of `esize` bytes (1 or 4), idx and out
-// (M, NI); tile > 0 for the grid form (tile_cols != 0), NI % tile == 0.
+// (M, NI). CTAs over (4096-column tile, row).
 int zxc_gather_axis1(const void* x, const int32_t* idx, void* out, int M,
-                     int N, long long NI, int esize, long long tile_cols,
-                     void* stream) {
+                     int N, long long NI, int esize, void* stream) {
   if (M == 0 || NI == 0) return 0;
-  if (M < 0 || N < 0 || NI < 0 || tile_cols < 0 || (esize != 1 && esize != 4))
+  if (M < 0 || N < 0 || NI < 0 || (esize != 1 && esize != 4))
     return (int)cudaErrorInvalidValue;
-  // gather_axis1: CTAs over (4096-column tile, row); the grid form: one CTA
-  // a `tile_cols` tile, every row
-  const long long tile = tile_cols ? tile_cols : kAxisTile;
-  const int rows_per_cta = tile_cols ? M : 1;
-  const dim3 grid((unsigned)((NI + tile - 1) / tile), tile_cols ? 1 : M);
+  const dim3 grid((unsigned)((NI + kAxisTile - 1) / kAxisTile), M);
   if (grid.y > 65535) return (int)cudaErrorInvalidValue;
   if (esize == 1)
     gather_axis1_kernel<uint8_t><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-        static_cast<const uint8_t*>(x), idx, static_cast<uint8_t*>(out), M, N,
-        NI, tile, rows_per_cta);
+        static_cast<const uint8_t*>(x), idx, static_cast<uint8_t*>(out), N,
+        NI);
   else
     gather_axis1_kernel<int32_t><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-        static_cast<const int32_t*>(x), idx, static_cast<int32_t*>(out), M, N,
-        NI, tile, rows_per_cta);
+        static_cast<const int32_t*>(x), idx, static_cast<int32_t*>(out), N,
+        NI);
   return (int)cudaGetLastError();
+}
+
+// Returns a cudaError_t (0 = launched) and launches on `stream`. Checked by
+// the Python wrapper: x (M, N) of `esize` bytes (1 or 4), idx and out
+// (M, NI), in the geometry of probes.grid_plan: `form` 1 the cluster form
+// (clusters of K CTAs, `clusters` a row, each CTA `slice` elements of its
+// row in `smem` bytes of shared memory, each cluster `cols` index columns;
+// vec 0), 0 the L2 form (K 1, `clusters` CTAs of 4096 columns a row, slice
+// and smem 0; `vec` 1 for 16-byte index loads and output stores). A geometry the kernels cannot run gives
+// cudaErrorInvalidValue.
+int zxc_gather_grid(const void* x, const int32_t* idx, void* out, int M,
+                    int N, long long NI, int esize, int form, int K,
+                    int clusters, int slice, long long cols, int vec,
+                    int smem, void* stream) {
+  const int bad = (int)cudaErrorInvalidValue;
+  if (M < 0 || N < 0 || NI < 0 || (esize != 1 && esize != 4) ||
+      (form != 0 && form != 1) || (vec != 0 && vec != 1))
+    return bad;
+  if (M == 0 || NI == 0) return 0;
+  const int v = 16 / esize;    // columns of 16 bytes of output
+  if (M > 65535 || clusters < 1 || cols < 1 ||
+      (vec && ((uintptr_t)idx % 16 || (uintptr_t)out % 16 || NI % v)))
+    return bad;
+  if (form == 0) {
+    if (K != 1 || slice != 0 || smem != 0 ||
+        cols != (long long)kGridL2Threads * kGridCols ||
+        clusters != (NI + cols - 1) / cols)
+      return bad;
+  } else if (vec || K < 1 || K > kMaxCluster || (K & (K - 1)) ||
+             slice < 1 || (long long)slice * esize % 16 ||
+             (long long)slice * esize > kMaxSlice ||
+             (long long)K * slice < N || smem != slice * esize ||
+             (long long)clusters * cols < NI ||
+             (long long)K * clusters > 0x7fffffffll) {
+    return bad;
+  }
+  cudaStream_t s = (cudaStream_t)stream;
+  return esize == 1
+      ? launch_grid<uint8_t>(x, idx, out, M, N, NI, form, K, clusters, slice,
+                             cols, vec, smem, s)
+      : launch_grid<int32_t>(x, idx, out, M, N, NI, form, K, clusters, slice,
+                             cols, vec, smem, s);
 }
 
 // Returns a cudaError_t (0 = launched) and launches on `stream`. Checked by

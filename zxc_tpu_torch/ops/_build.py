@@ -78,7 +78,7 @@ def _bind_encode(L, vp, ci) -> None:
     L.zxc_lcp.restype = ci
     L.zxc_lcp.argtypes = [vp] * 3 + [ci, i64, ci, i64, vp]
     L.zxc_parse_walk.restype = ci
-    L.zxc_parse_walk.argtypes = [vp] * 3 + [ci] * 3 + [vp]
+    L.zxc_parse_walk.argtypes = [vp] * 5 + [ci] * 7 + [vp]
 
 
 def _bind_attic(L, vp, ci) -> None:
@@ -97,7 +97,10 @@ def _bind_attic(L, vp, ci) -> None:
 def _bind_gather(L, vp, ci) -> None:
     i64 = ctypes.c_longlong
     L.zxc_gather_axis1.restype = ci
-    L.zxc_gather_axis1.argtypes = [vp] * 3 + [ci, ci, i64, ci, i64, vp]
+    L.zxc_gather_axis1.argtypes = [vp] * 3 + [ci, ci, i64, ci, vp]
+    L.zxc_gather_grid.restype = ci
+    L.zxc_gather_grid.argtypes = ([vp] * 3 + [ci, ci, i64] + [ci] * 5
+                                  + [i64, ci, ci, vp])
     L.zxc_gather_rows.restype = ci
     L.zxc_gather_rows.argtypes = [vp, ci, ci, vp, ci, vp] + [ci] * 7 + [vp]
 

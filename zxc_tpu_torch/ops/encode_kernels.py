@@ -21,17 +21,25 @@ Replaces ``zxc_tpu/ops/pallas_encode.py``: ``_make_lcp_body`` /
   the rest as the JAX kernel does (the plain version has 0 there). A step
   below 1 advances by 1 (the JAX kernel would loop for ever).
 
-Bounds on the card: the LCP kernel is bound by bytes (``lcp_bytes_moved``:
-the blocks once, a 4-byte word in and a 4-byte result out per pair); the
-walk's bytes (``walk_bytes_moved``: the steps its chain reads and the
-entries it writes) are a microsecond or two, and its real floor is the
-dependent chain of up to P steps a block (``walk_chain``). On a CPU tensor a wrapper runs the
-plain PyTorch version; on a CUDA tensor it launches the kernel or raises.
-Each wrapper counts its kernel launches in ``<wrapper>.launches``.
+Bounds on the card: both kernels' bounds are bytes. The LCP kernel's
+(``lcp_bytes_moved``) are the blocks once, a 4-byte word in and a 4-byte
+result out per pair; the walk's (``walk_bytes_moved``) are the steps its
+chain reads and the entries it writes, a microsecond or two. The chain of
+up to P dependent steps a block (``walk_chain``, a statistic) is no floor:
+the kernel walks the chunks of ``walk_plan`` in parallel and lets the
+walks synchronize themselves (two walks are one from the first position
+both reach), in rounds until no chunk's exit changes, with a serial finish
+where walks never meet (``WALK_MAX_ROUNDS``; ``walk_rounds`` reads the
+rounds; ``csrc/encode.cu`` says how). What holds it above its bound is
+its one SM a block, 16 of the card's 132 for a group.
+On a CPU tensor a wrapper runs the plain PyTorch version; on a CUDA tensor
+it launches the kernel or raises. Each wrapper counts its kernel launches
+in ``<wrapper>.launches``.
 """
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -43,6 +51,13 @@ CAP = 256            # 128 * ROUNDS of the JAX kernel
 MAX_BLOCK = 65536    # the LCP kernel stages one block in shared memory
 _WIN = 16            # bytes per compare window of the plain LCP
 _CHUNK = 1 << 18     # pairs per gather of the plain LCP
+# The parse walk's geometry: one chunk a thread of a 1024-thread CTA; rows
+# of at most 65536 steps staged in shared memory as uint16; the serial
+# finish after this many synchronizing rounds (or a round that changes
+# more than half the chunks).
+WALK_THREADS = 1024
+WALK_SHARED_MAX = 65536
+WALK_MAX_ROUNDS = 32
 
 
 def _check(name: str, t, dtype, ndim: int, dev=None) -> None:
@@ -181,6 +196,62 @@ def parse_walk_reference(step, cap: int | None = None):
     return nseq, pos_buf
 
 
+class WalkPlan(NamedTuple):
+    """The launch geometry of the parse walk over rows of P steps:
+    ``chunks`` chunks of ``chunk`` positions (a multiple of 32; chunk k is
+    [k * chunk, min((k + 1) * chunk, P)), thread k's); two bitmaps of
+    ``words`` words, the visit marks and the records (positions whose
+    step is over 1); ``shared``: the row staged in ``smem`` bytes of
+    shared memory (uint16 steps, then the bitmaps), else read from global
+    memory with the bitmaps in a scratch of 2 * ``words`` words a
+    block."""
+    P: int
+    chunk: int
+    chunks: int
+    shared: bool
+    words: int
+    smem: int
+
+
+def walk_plan(P: int) -> WalkPlan:
+    """The walk's geometry for rows of P steps (``csrc/encode.cu``
+    ``zxc_parse_walk`` checks it)."""
+    per_thread = -(-P // WALK_THREADS)
+    chunk = max(32, -(-per_thread // 32) * 32)
+    words = -(-P // 32)
+    shared = P <= WALK_SHARED_MAX
+    smem = -(-2 * P // 16) * 16 + 8 * words if shared else 0
+    return WalkPlan(P, chunk, -(-P // chunk), shared, words, smem)
+
+
+def _walk(step, cap, stats: bool):
+    _check("step", step, torch.int32, 2)
+    B, P = step.shape
+    cap = P // C.MIN_MATCH + 1 if cap is None else cap
+    if cap < 1:
+        raise ValueError(f"parse_walk needs cap >= 1, not {cap}")
+    step = step.contiguous()
+    dev = step.device
+    plan = walk_plan(P)
+    nseq = torch.empty(B, dtype=torch.int32, device=dev)
+    pos = torch.empty((B, cap), dtype=torch.int32, device=dev)
+    bits = (None if plan.shared else
+            torch.empty((B, 2 * plan.words), dtype=torch.int32, device=dev))
+    st = torch.empty((B, 2), dtype=torch.int32, device=dev) if stats else None
+    from . import _build
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = _build.encode_kernels().zxc_parse_walk(
+            step.data_ptr(), nseq.data_ptr(), pos.data_ptr(),
+            *(None if t is None else t.data_ptr() for t in (bits, st)),
+            B, P, cap, plan.chunk, int(plan.shared), plan.smem,
+            WALK_MAX_ROUNDS, stream)
+    if rc:
+        raise RuntimeError(f"zxc_parse_walk launch failed: cudaError {rc}")
+    parse_walk.launches += 1
+    return nseq, pos, st
+
+
 def parse_walk(step, cap: int | None = None):
     """Parse walk over B blocks' steps (B, P) int32: the CUDA kernel for
     CUDA tensors, the plain version for CPU tensors. Returns (nseq (B,)
@@ -188,17 +259,17 @@ def parse_walk(step, cap: int | None = None):
     ``pos[b, :min(nseq[b], cap)]`` is defined."""
     if not _on_card("parse_walk", step):
         return parse_walk_reference(step, cap)
-    _check("step", step, torch.int32, 2)
-    B, P = step.shape
-    cap = P // C.MIN_MATCH + 1 if cap is None else cap
-    if cap < 1:
-        raise ValueError(f"parse_walk needs cap >= 1, not {cap}")
-    step = step.contiguous()
-    nseq = torch.empty(B, dtype=torch.int32, device=step.device)
-    pos = torch.empty((B, cap), dtype=torch.int32, device=step.device)
-    _launch("zxc_parse_walk", step, (step, nseq, pos), (B, P, cap))
-    parse_walk.launches += 1
-    return nseq, pos
+    return _walk(step, cap, False)[:2]
+
+
+def walk_rounds(step, cap: int | None = None) -> torch.Tensor:
+    """The kernel's synchronization on CUDA steps: (B, 2) int32, each
+    block's rounds and the first chunk it walked serially (-1: none). One
+    ``parse_walk`` launch (counted there); for CUDA tensors only."""
+    if not _on_card("walk_rounds", step):
+        raise ValueError("walk_rounds reads the kernel's rounds: it needs "
+                         "a CUDA tensor")
+    return _walk(step, cap, True)[2]
 
 
 def walk_defined(nseq: torch.Tensor, cap: int) -> torch.Tensor:

@@ -21,7 +21,10 @@ its plain version and run by a hand-written kernel:
   ``csrc/attic.cu``, ``zxc_lane_sum_probe``). ``norotate`` is two
   functions: v10_probe drops the roll, v12_ablate adds the roll amount.
 * ``gather_axis1`` and ``gather_grid`` (``tools/tpu_pallas_gather_probe.py``):
-  ``out[i, j] = x[i, idx[i, j]]``, the grid form walking index tiles.
+  ``out[i, j] = x[i, idx[i, j]]``; the grid form's ``tile`` is checked,
+  and its schedule is ``grid_plan``'s: the table row in the shared memory
+  of a cluster of CTAs, each answering the indices of its own slice, or
+  read from L2 where it does not fit.
 * ``gather_rows`` (``tools/tpu_indirect_dma_probe.py``, ``build_a/b/c``):
   ``out[i] = table[idx[i]]``, by bulk async row copies one at a time a CTA
   (``dma_a``), one CTA a row all at once (``dma_b``) or bulk row copies
@@ -60,6 +63,15 @@ ROW_FORMS = {"a": 0, "b": 1, "c": 2}     # build_a, build_b, build_c
 ROWS_PER_CTA = {"a": 1, "c": 2}
 STAGES = {"a": 1, "c": 2}
 STAGE_BYTES = 8192
+# The grid gather's geometry (``grid_plan``; ``csrc/gather.cu``): 1024
+# threads a CTA of the cluster form, 256 of the L2 form, 16 index columns
+# a thread at a time; clusters of at most 8 CTAs, each holding at most
+# 200 KiB of its row.
+GRID_THREADS = 1024
+GRID_L2_THREADS = 256
+GRID_COLS = 16
+GRID_MAX_CLUSTER = 8
+GRID_MAX_SLICE = 200 << 10
 
 
 # -- quad probes: tpu_v13_bisect.py, tpu_v12_ablate2.py ----------------------
@@ -238,19 +250,11 @@ def gather_axis1_reference(x, idx) -> torch.Tensor:
     return torch.where(ok, got, 0).to(x.dtype)
 
 
-def _gather_launch(name: str, x, idx, tile_cols: int) -> torch.Tensor:
+def _gather_operands(name: str, x, idx) -> None:
     _check_gather(x, idx)
     for t in (x, idx):
         if not t.is_contiguous():
             raise ValueError(f"{name} operands must be contiguous")
-    from . import _build
-    M, N = x.shape
-    out = torch.empty(idx.shape, dtype=x.dtype, device=x.device)
-    with torch.cuda.device(x.device):
-        attic._launch(name, _build.gather_kernels().zxc_gather_axis1,
-                      x.data_ptr(), idx.data_ptr(), out.data_ptr(), M, N,
-                      idx.shape[1], x.element_size(), tile_cols)
-    return out
 
 
 def gather_axis1(x, idx) -> torch.Tensor:
@@ -259,22 +263,96 @@ def gather_axis1(x, idx) -> torch.Tensor:
     the CUDA kernel for CUDA tensors, the plain version for CPU tensors."""
     if not CE._on_card("gather_axis1", x):
         return gather_axis1_reference(x, idx)
-    out = _gather_launch("gather_axis1", x, idx, 0)
+    _gather_operands("gather_axis1", x, idx)
+    from . import _build
+    M, N = x.shape
+    out = torch.empty(idx.shape, dtype=x.dtype, device=x.device)
+    with torch.cuda.device(x.device):
+        attic._launch("gather_axis1", _build.gather_kernels().zxc_gather_axis1,
+                      x.data_ptr(), idx.data_ptr(), out.data_ptr(), M, N,
+                      idx.shape[1], x.element_size())
     gather_axis1.launches += 1
     return out
 
 
+class GridPlan(NamedTuple):
+    """The launch geometry of the grid gather ``zxc_gather_grid`` takes.
+    ``form`` "cluster": each row i has ``clusters`` clusters of ``K``
+    CTAs; CTA rank r of a cluster holds elements [r * slice, (r + 1) *
+    slice) of row i in ``smem`` bytes of shared memory, and every CTA of
+    cluster c takes index columns [c * cols, (c + 1) * cols), writing the
+    outputs whose element it holds. ``form`` "l2": ``clusters`` CTAs a row
+    of ``cols`` columns each, the row read from L2 (K 1, slice and smem
+    0), with 16-byte index loads and output stores where ``vec``."""
+    M: int
+    N: int
+    NI: int
+    esize: int
+    form: str
+    K: int
+    clusters: int
+    slice: int
+    cols: int
+    vec: bool
+    smem: int
+
+
+def grid_plan(M: int, N: int, NI: int, esize: int, aligned: bool = True,
+              sms: int = 132) -> GridPlan:
+    """The grid gather's geometry for x (M, N) of ``esize``-byte elements
+    and idx (M, NI): the cluster form when the row fits the shared memory
+    of a cluster of at most 8 CTAs, with enough clusters a row to fill
+    ``sms`` SMs (one CTA of 1024 threads an SM) and at least one pass of
+    the CTA's threads each; else the L2 form, with 16-byte access when
+    ``aligned`` (the index and output rows start on 16 bytes) and NI is a
+    multiple of 16 / esize."""
+    v = 16 // esize
+    K = 1
+    while K <= GRID_MAX_CLUSTER and -(-N // K) * esize > GRID_MAX_SLICE:
+        K *= 2
+    if N > 0 and K <= GRID_MAX_CLUSTER:
+        slice_ = -(-(-(-N // K)) // v) * v
+        clusters = max(1, min(sms // max(1, M * K),
+                              -(-NI // (GRID_THREADS * GRID_COLS))))
+        return GridPlan(M, N, NI, esize, "cluster", K, clusters, slice_,
+                        -(-NI // clusters), False, slice_ * esize)
+    cols = GRID_L2_THREADS * GRID_COLS
+    return GridPlan(M, N, NI, esize, "l2", 1, -(-NI // cols), 0, cols,
+                    aligned and NI % v == 0, 0)
+
+
+def _launch_grid(x, idx, out, plan: GridPlan) -> None:
+    from . import _build
+    with torch.cuda.device(x.device):
+        attic._launch("gather_grid", _build.gather_kernels().zxc_gather_grid,
+                      x.data_ptr(), idx.data_ptr(), out.data_ptr(), plan.M,
+                      plan.N, plan.NI, plan.esize,
+                      int(plan.form == "cluster"), plan.K, plan.clusters,
+                      plan.slice, plan.cols, int(plan.vec), plan.smem)
+
+
+def gather_grid_plan(x, idx, out) -> GridPlan:
+    """``grid_plan`` of CUDA operands as ``gather_grid`` launches them."""
+    (M, N), NI = x.shape, idx.shape[1]
+    aligned = idx.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    return grid_plan(M, N, NI, x.element_size(), aligned, sms)
+
+
 def gather_grid(x, idx, tile: int) -> torch.Tensor:
     """``tpu_pallas_gather_probe.pallas_gather_grid``: ``gather_axis1``'s
-    function, one CTA a ``tile`` of index columns over every row (the
-    TPU grid's steps); NI must be a multiple of ``tile``."""
+    function; NI must be a multiple of ``tile``, which the card's schedule
+    (``grid_plan``) does not otherwise follow. The CUDA kernel for CUDA
+    tensors, the plain version for CPU tensors."""
     _check_gather(x, idx)
     if tile < 1 or idx.shape[1] % tile:
         raise ValueError(f"gather_grid: tile {tile} does not divide the "
                          f"{idx.shape[1]} index columns")
     if not CE._on_card("gather_grid", x):
         return gather_axis1_reference(x, idx)
-    out = _gather_launch("gather_grid", x, idx, tile)
+    _gather_operands("gather_grid", x, idx)
+    out = torch.empty(idx.shape, dtype=x.dtype, device=x.device)
+    _launch_grid(x, idx, out, gather_grid_plan(x, idx, out))
     gather_grid.launches += 1
     return out
 
