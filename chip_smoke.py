@@ -6,12 +6,14 @@
 Phases, in order; any failure exits non-zero before the result line:
 
 1. the card's name and power limit (nvidia-smi); build the native host
-   runtime (g++), the copy-engine kernels v19/v25/v26/v27/v13, the attic's
-   quad-tile modes and v12's probe ablations (``csrc/copy_engine.cu``,
-   nvcc, sm_90a), the encoder's kernels lcp/parse_walk
-   (``csrc/encode.cu``), the attic's piece-serial, window-merge and
-   lane-sum kernels with the lane-sum probes (``csrc/attic.cu``) and the
-   gather probes (``csrc/gather.cu``) in parallel;
+   runtime (g++), the copy-engine kernels (``csrc/copy_engine.cu``, nvcc,
+   sm_90a: the tile routine for v19, v13, the attic's quad-tile modes and
+   v12's probe ablations, in clusters of ``copy_engine.tile_plan``; the
+   (supertile, block) grid for v25/v26/v27), the encoder's kernels
+   lcp/parse_walk (``csrc/encode.cu``), the attic's piece-serial,
+   window-merge and lane-sum kernels with the lane-sum probes
+   (``csrc/attic.cu``) and the gather probes (``csrc/gather.cu``) in
+   parallel;
 2. the pinned 32 MiB corpus (tools/gen_corpus.py, sha256 checked against
    tools/corpus_manifest.json), encoded by the port's native encoder at
    level 3 with 64 KiB blocks (512 blocks, 32 dispatch groups of 16), with
@@ -23,7 +25,8 @@ Phases, in order; any failure exits non-zero before the result line:
    prep, and v26 also on the 512 KiB archive's first group, 32 supertiles
    a block, with the share of quads by supertile that read the block's
    own output; v27: the hint's control and the batch replay's flat lit;
-   v13: the 4 KiB archive as ``ops/serial.py`` packs it; the attic kernel: the
+   v13: the 4 KiB archive as ``ops/serial.py`` packs it, with v13's and
+   v19's cluster sizes printed; the attic kernel: the
    64 KiB archive as ``ops.decompress(use_serial=True, variant=2)`` packs
    it; the window merge in modes v4-v7 and the lane sum in modes v9-v11:
    the same blocks as ``attic.decode_blocks_v4/v9/v10/v11`` pack them;
@@ -774,6 +777,7 @@ def main() -> None:
 
     # -- 3. kernel vs plain on the first dispatch group --------------------
     rows = {}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     walk512 = DP.walk_frame(arc512)
     for key, name, variant, w, a, block in (
             (19, "v19", 19, walk, arc, BLOCK),
@@ -790,6 +794,9 @@ def main() -> None:
         if variant == 26:
             shape += (", quads reading own output by supertile "
                       + out_quads(*host_args[:2], pipe.RLP))
+        else:
+            plan19 = CE.tile_plan(DISPATCH, pipe.NST, CE.TILE_ROWS, sms)
+            shape += f", clusters of {plan19.C}"
         rows[key] = kernel_row(
             name, SOURCE, REPLACES[variant], lambda: kern(*args),
             lambda: ref(*args),
@@ -825,11 +832,16 @@ def main() -> None:
     (group,) = S.pack_groups(pieces, lits, totals4, SMALL_BLOCK, True,
                              DISPATCH)
     args = CE.group_from_numpy(*group, device="cuda")
+    plan13 = CE.tile_plan(DISPATCH, group[0].shape[1] - 1, CE.V13_ROWS, sms)
+    print(f"tile plan: v13 (B={DISPATCH}, NT={plan13.NT}, 32-row tiles) "
+          f"C={plan13.C}; v19 (B={DISPATCH}, NST={plan19.NT}) C={plan19.C};"
+          f" {sms} SMs", flush=True)
     rows[13] = kernel_row(
         "v13", SOURCE, REPLACES[13], lambda: CE.v13(*args),
         lambda: CE.v13_reference(*args),
         CE.bytes_moved(*group, K=1, rows=CE.V13_ROWS),
-        f"MAXQ={group[1].shape[1]} RLP={group[4].shape[1]}",
+        f"MAXQ={group[1].shape[1]} RLP={group[4].shape[1]}, clusters of "
+        f"{plan13.C}",
         first_group=group_bytes_equal(data, totals4, SMALL_BLOCK, DISPATCH))
     totals64, pieces, lits = first_group_plan(arc)
     (group,) = AT.pack_groups(pieces, lits, totals64, BLOCK, DISPATCH)
@@ -856,7 +868,8 @@ def main() -> None:
         "v25", SOURCE, V25_REPLACES, lambda: CE.v25(*args),
         lambda: CE.v25_reference(*args),
         CE.bytes_moved(*host),
-        f"{int(host[0][:, -1].sum())} quads "
+        "self_ref_grid_kernel (one CTA per (supertile, block), ready "
+        f"flags), {int(host[0][:, -1].sum())} quads "
         f"({int((host[1] >= CE.OUT_QB_FLAG).sum())} OUT), MAXQ="
         f"{host[1].shape[1]} RLP={host[4].shape[1]}",
         first_group=group_bytes_equal(data, totals64, BLOCK, DISPATCH))

@@ -6,10 +6,12 @@ the lane-sum probes and the gathers, the row gather's forms also on
 unaligned, long-row and empty tables, indices outside the table and a
 reused output block) against its plain PyTorch version on the card, on
 valid and on garbage control, misaligned or non-contiguous operands
-refused; v26 and v27 also on a (supertile, block) grid larger
+refused; v25, v26 and v27 also on a (supertile, block) grid larger
 than the card holds at once, on plans with the longest dependency chain
 and with reads on both sides of the stored-row boundary, and over
-repeated launches on one stream and on two; and the cold, hint, serial, v25 and attic decodes
+repeated launches on one stream and on two; v13 and v19 at every cluster
+size of the tile routine, with every slot on one target row, and v19
+with three planes; and the cold, hint, serial, v25 and attic decodes
 (``attic_quad``'s ten entries included), the default expansion route (no
 hand-written kernel),
 ``Seekable.decompress_range_device`` and the device encode against the
@@ -232,17 +234,33 @@ def plan_group(seed: int, B: int, NST: int, RLP: int, K: int = 2,
     return (qs, qbase, pctrl.astype(np.uint32).view(np.int32), tq, lit8)
 
 
-# v26/v27 on the (supertile, block) grid: NST = 32 (the 512 KiB blocks'
-# first group, 512 CTAs, more than the card holds at once) and 4
+def as_v25(group):
+    """v25's form of a v26 ``group``: a quad whose window starts in the
+    block's own output (qbase >= RLP) carries ``OUT_QB_FLAG`` with its
+    output row instead (qbase - RLP + OUT_QB_FLAG), as ``v25_group`` makes
+    them; the others keep their lit rows, so a window straddling RLP reads
+    only its rows below RLP."""
+    qs, qbase, pctrl, tq, lit8 = group
+    RLP = lit8.shape[1]
+    flagged = np.where(qbase >= RLP, qbase.astype(np.int64) - RLP
+                       + CE.OUT_QB_FLAG, qbase)
+    return qs, flagged.astype(np.int32), pctrl, tq, lit8
+
+
+# v25/v26/v27 on the (supertile, block) grid: NST = 32 (the 512 KiB
+# blocks' first group, 512 CTAs, more than the card holds at once) and 4
 BIG = (16, 32, 832, 4608)
 
 
 def _self_ref_call(variant: int, host, card):
-    """(kernel call, plain call) of v26 or v27 (the flat layout of the v26
-    ``host`` group) on the card."""
-    if variant == 26:
+    """(kernel call, plain call) of v25 (``as_v25`` of the v26 ``host``
+    group), v26 or v27 (its flat layout) on the card."""
+    if variant in (25, 26):
+        if variant == 25:
+            host = as_v25(host)
         args = CE.group_from_numpy(*host, device=card)
-        return lambda: CE.v26(*args), lambda: CE.v26_reference(*args)
+        kern, ref = CE.KERNELS[variant], CE.REFERENCES[variant]
+        return lambda: kern(*args), lambda: ref(*args)
     flat, RLP = flat_group(7, host)
     args = CE.group_from_numpy(*flat, device=card)
     return (lambda: CE.v27(*args, RLP=RLP),
@@ -250,7 +268,7 @@ def _self_ref_call(variant: int, host, card):
 
 
 @pytest.mark.parametrize("garbage", [False, True])
-@pytest.mark.parametrize("variant", [26, 27])
+@pytest.mark.parametrize("variant", [25, 26, 27])
 def test_self_ref_grid_larger_than_card_on_card(card, variant, garbage):
     kern, ref = _self_ref_call(variant, random_group(
         31, *BIG, 2, True, garbage=garbage), card)
@@ -262,7 +280,7 @@ def test_self_ref_grid_larger_than_card_on_card(card, variant, garbage):
 
 
 @pytest.mark.parametrize("garbage", [False, True])
-@pytest.mark.parametrize("variant", [26, 27])
+@pytest.mark.parametrize("variant", [25, 26, 27])
 def test_self_ref_ranges_over_one_scan_on_card(card, variant, garbage):
     """Supertile ranges of more than 1024 quads (MAXQ 4200 over 2
     supertiles; with seed 32 supertile 1 runs 1,202 quads of valid and
@@ -276,7 +294,7 @@ def test_self_ref_ranges_over_one_scan_on_card(card, variant, garbage):
 
 
 @pytest.mark.parametrize("kind", ["chain", "boundary", "mixed"])
-@pytest.mark.parametrize("variant", [26, 27])
+@pytest.mark.parametrize("variant", [25, 26, 27])
 def test_self_ref_dependency_plans_on_card(card, variant, kind):
     for seed, (B, NST, RLP, K) in enumerate(((16, 32, 4608, 2),
                                              (16, 4, 768, 2),
@@ -288,7 +306,7 @@ def test_self_ref_dependency_plans_on_card(card, variant, kind):
         assert torch.equal(out, ref())
 
 
-@pytest.mark.parametrize("variant", [26, 27])
+@pytest.mark.parametrize("variant", [25, 26, 27])
 def test_self_ref_repeated_launches_on_card(card, variant):
     """50 launches on one stream, two plans in turn (each call's output
     and scratch reuse the last call's memory, which holds the other
@@ -329,6 +347,73 @@ def test_v13_equals_plain_version_on_card(card, garbage):
         torch.cuda.synchronize()
         assert CE.v13.launches == before + 1
         assert torch.equal(out, CE.v13_reference(*args))
+
+
+# every cluster size the tile plan can give (1 to 8 CTAs a tile)
+CLUSTERS = (1, 2, 4, 8)
+
+
+@pytest.mark.parametrize("garbage", [False, True])
+@pytest.mark.parametrize("C", CLUSTERS)
+@pytest.mark.parametrize("variant", [13, 19])
+def test_tile_routine_at_every_cluster_size_on_card(card, variant, C,
+                                                    garbage):
+    """v13 and v19 with the cluster size forced: each CTA of a tile's
+    cluster adds its share of the slots, the cluster sums the tiles."""
+    for seed, (B, NT, MAXQ, RLP) in enumerate(((3, 2, 24, 256),
+                                               (16, 1, 32, 256),
+                                               (16, 4, 96, 640))):
+        rows = 32 if variant == 13 else 128
+        args = CE.group_from_numpy(*random_group(
+            seed, B, NT, MAXQ, RLP, 1 if variant == 13 else 2, False,
+            garbage=garbage, rows=rows), device=card)
+        out = CE.KERNELS[variant](*args, _cluster=C)
+        torch.cuda.synchronize()
+        assert torch.equal(out, CE.REFERENCES[variant](*args))
+
+
+def test_tile_routine_refuses_a_bad_cluster_on_card(card):
+    args = CE.group_from_numpy(*random_group(0, 2, 1, 8, 256, 1, False,
+                                             rows=32), device=card)
+    for C in (0, 3, 16):
+        with pytest.raises(RuntimeError, match="cudaError"):
+            CE.v13(*args, _cluster=C)
+
+
+@pytest.mark.parametrize("variant", [13, 19])
+def test_one_target_row_takes_every_slot_on_card(card, variant):
+    """Every slot of every batch is live and adds into tile row 5: the
+    shared-memory atomics of 32 slots a batch (and of a cluster's CTAs)
+    meet on one row; sums pass 255 and wrap mod 256."""
+    B, NT, MAXQ, RLP = 4, 2, 16, 256
+    rows = 32 if variant == 13 else 128
+    K = 1 if variant == 13 else 2
+    qs, qbase, pctrl, tq, lit8 = random_group(3, B, NT, MAXQ, RLP, K, False,
+                                              rows=rows)
+    qs[:] = np.arange(NT + 1) * (MAXQ // NT)
+    w = pctrl.view(np.uint32) & ~np.uint32(0x3FFF << 7)
+    w |= np.uint32(127 << 14)                       # every lane, plane 0
+    pctrl = w.view(np.int32)
+    tq[:] = 5
+    for C in CLUSTERS:
+        args = CE.group_from_numpy(qs, qbase, pctrl, tq, lit8, device=card)
+        out = CE.KERNELS[variant](*args, _cluster=C)
+        torch.cuda.synchronize()
+        want = CE.REFERENCES[variant](*args)
+        assert torch.equal(out, want)
+        assert want.view(B, NT, rows, 128)[:, :, 5].any()
+
+
+def test_v19_three_planes_on_card(card):
+    """K = 3: the third plane is read per slot, past the two a lane holds
+    (kRegPlanes), on the tile routine at every cluster size."""
+    for seed, garbage in ((0, False), (1, True)):
+        args = CE.group_from_numpy(*random_group(
+            seed, 16, 4, 96, 640, 3, False, garbage=garbage), device=card)
+        for C in CLUSTERS:
+            out = CE.v19(*args, K=3, _cluster=C)
+            torch.cuda.synchronize()
+            assert torch.equal(out, CE.v19_reference(*args, K=3))
 
 
 def _card_corpus(seed: int) -> bytes:

@@ -56,21 +56,22 @@ def _library(stem: str, bind) -> ctypes.CDLL:
 
 
 def _bind_copy_engine(L, vp, ci) -> None:
-    for fn in (L.zxc_copy_engine_v19, L.zxc_copy_engine_v25):
+    # the tile routine's entries end with the cluster size before stream
+    L.zxc_copy_engine_v19.restype = ci
+    L.zxc_copy_engine_v19.argtypes = [vp] * 6 + [ci] * 7 + [vp]
+    # v25/v26/v27 take the call's scratch (ticket and ready flags) after out
+    for fn in (L.zxc_copy_engine_v25, L.zxc_copy_engine_v26):
         fn.restype = ci
-        fn.argtypes = [vp] * 6 + [ci] * 6 + [vp]
-    # v26/v27 take the call's scratch (ticket and ready flags) after out
-    L.zxc_copy_engine_v26.restype = ci
-    L.zxc_copy_engine_v26.argtypes = [vp] * 7 + [ci] * 6 + [vp]
+        fn.argtypes = [vp] * 7 + [ci] * 6 + [vp]
     L.zxc_copy_engine_v27.restype = ci
     L.zxc_copy_engine_v27.argtypes = [vp] * 8 + [ci] * 6 + [ctypes.c_int64,
                                                             vp]
     L.zxc_copy_engine_v13.restype = ci
-    L.zxc_copy_engine_v13.argtypes = [vp] * 6 + [ci] * 5 + [vp]
+    L.zxc_copy_engine_v13.argtypes = [vp] * 6 + [ci] * 6 + [vp]
     L.zxc_copy_engine_quad.restype = ci
-    L.zxc_copy_engine_quad.argtypes = [vp] * 6 + [ci] * 7 + [vp]
+    L.zxc_copy_engine_quad.argtypes = [vp] * 6 + [ci] * 8 + [vp]
     L.zxc_copy_engine_quad_ablate.restype = ci
-    L.zxc_copy_engine_quad_ablate.argtypes = [vp] * 6 + [ci] * 6 + [vp]
+    L.zxc_copy_engine_quad_ablate.argtypes = [vp] * 6 + [ci] * 7 + [vp]
 
 
 def _bind_encode(L, vp, ci) -> None:

@@ -53,12 +53,15 @@ once, and the uint8 output written once) over the H100's 3.35 TB/s; a
 dispatch group of 16 x 64 KiB blocks moves a few MB, a microsecond or
 two. The kernels are far from it: each slot is a chain of dependent
 loads. The design keeps the tile in shared memory as int32 with atomic
-adds (exact for any control) and lets one warp serve one slot with a
-coalesced row load and register shuffles. v26 and v27 run one CTA per
-(supertile, block): each adds its lit-row slots at once, waits on ready
-flags of its block's earlier supertiles only for the slots that read the
-block's own output, and lets a warp serve 32 slots with several row
-loads in flight; see the source for details.
+adds (exact for any control) and lets a warp serve 32 slots at a time
+with several source-row loads in flight. v19, v13 and the attic modes
+run one tile on a cluster of ``tile_plan(...).C`` CTAs, each adding its
+share of the tile's slots into its own tile before the cluster sums them
+through distributed shared memory (C > 1 only where the grid leaves most
+SMs idle). v25, v26 and v27 run one CTA per (supertile, block): each adds
+its lit-row slots at once and waits on ready flags of its block's earlier
+supertiles only for the slots that read the block's own output; see the
+source for details.
 
 On a CPU tensor a wrapper runs the plain PyTorch version; on a CUDA
 tensor it launches the kernel or raises. Each wrapper counts its kernel
@@ -82,6 +85,55 @@ OUT_QB_FLAG = 1 << 24   # v25: a quad whose qbase is at least this reads out
 # each masked value to bf16; mmonly adds the gathered row, not rolled or
 # masked, into tile row i & 31
 QUAD_ABLATIONS = {"nopt": 1, "statwin": 2, "nomm": 3, "mmonly": 4}
+
+
+# The tile routine's launch geometry (``tile_plan``; ``csrc/copy_engine.cu``
+# ``tiled_kernel``): 1024 threads a CTA, one CTA an SM. The kernel takes
+# clusters of up to 8 CTAs a tile; the plan gives at most 4, chosen by
+# measurement on the card (``python3 -m zxc_tpu_torch.copy_engine_ab``;
+# PERF.md, P6): clusters of 8 full-SM CTAs launch and sync slower than
+# their work gains, and a grid past one wave of the card loses.
+TILE_THREADS = 1024
+TILE_MAX_CLUSTER = 4
+
+
+class TilePlan(NamedTuple):
+    """The tile routine's launch geometry: a grid of (NT * C, B) CTAs of
+    ``TILE_THREADS`` threads in clusters of C, one cluster a (tile, block).
+    CTA rank r adds the items r, r + C, r + 2C, ... of its tile's walk
+    (warp w starts at w * C + r and steps by 32 * C; an item is a quad's
+    32-slot batch, or a half or quarter of it when the tile's items are
+    fewer than the cluster's warps) into its own int32 tile of ``rows``
+    rows, then sums rows [r * slice, (r + 1) * slice) over the cluster's C
+    tiles and stores them."""
+    B: int
+    NT: int
+    rows: int
+    C: int
+    slice: int
+
+
+def tile_plan(B: int, NT: int, rows: int, sms: int = 132) -> TilePlan:
+    """The tile routine's geometry for B blocks of NT tiles of ``rows``
+    rows on a card of ``sms`` SMs (one CTA of 1024 threads an SM): the
+    largest cluster C of 1, 2 or 4 CTAs that divides ``rows`` and keeps
+    the B * NT * C CTAs within one wave of the card; 1 when the B * NT
+    tiles alone fill half of it or more."""
+    C = 1
+    while (C < TILE_MAX_CLUSTER and rows % (2 * C) == 0
+           and B * NT * 2 * C <= sms):
+        C *= 2
+    return TilePlan(B, NT, rows, C, rows // C)
+
+
+def cluster_size(B: int, NT: int, rows: int, device, forced=None) -> int:
+    """The cluster size a tile-routine launch takes: ``forced`` (tests and
+    the sweep of ``copy_engine_ab``; the C entry refuses a bad one), else
+    ``tile_plan``'s for ``device``'s SM count."""
+    if forced is not None:
+        return int(forced)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return tile_plan(B, NT, rows, sms).C
 
 
 class QuadMode(NamedTuple):
@@ -311,9 +363,9 @@ def _launch(entry: str, args, B: int, out_rows: int, ints,
             sync_words: int = 0) -> torch.Tensor:
     """Launch ``entry`` over the tensors ``args`` (each contiguous and
     16-byte aligned), a fresh (B, out_rows, 128) uint8 output, with
-    ``sync_words`` a fresh int32 scratch of that many words after it (v26,
-    v27: the entry zeroes it on the stream), and the ints ``ints``, on the
-    current stream."""
+    ``sync_words`` a fresh int32 scratch of that many words after it (v25,
+    v26, v27: the entry zeroes it on the stream), and the ints ``ints``,
+    on the current stream."""
     from . import _build
     dev = args[0].device
     for t in args:
@@ -343,16 +395,19 @@ def _on_card(name: str, qs) -> bool:
     return True
 
 
-def v19(qs, qbase, pctrl, tq, lit8, K: int = 2) -> torch.Tensor:
+def v19(qs, qbase, pctrl, tq, lit8, K: int = 2, *,
+        _cluster: int | None = None) -> torch.Tensor:
     """v19 copy engine over one dispatch group: the CUDA kernel for CUDA
     tensors, the plain version for CPU tensors. Returns
-    (B, NST*128, 128) uint8."""
+    (B, NST*128, 128) uint8. ``_cluster`` forces the cluster size (tests
+    and sweeps only)."""
     args = (qs, qbase, pctrl, tq, lit8)
     if not _on_card("v19", qs):
         return v19_reference(*args, K)
     B, NST, MAXQ, G32, RLP = _dims(*args, K)
+    C = cluster_size(B, NST, TILE_ROWS, qs.device, _cluster)
     out = _launch("zxc_copy_engine_v19", args, B, NST * TILE_ROWS,
-                  (B, NST, MAXQ, G32, K, RLP))
+                  (B, NST, MAXQ, G32, K, RLP, C))
     v19.launches += 1
     return out
 
@@ -365,8 +420,10 @@ def v25(qs, qbase, pctrl, tq, lit8, K: int = 2) -> torch.Tensor:
     if not _on_card("v25", qs):
         return v25_reference(*args, K)
     B, NST, MAXQ, G32, RLP = _dims(*args, K)
+    if RLP >= OUT_QB_FLAG:
+        raise ValueError(f"v25: RLP {RLP} is not below OUT_QB_FLAG")
     out = _launch("zxc_copy_engine_v25", args, B, NST * TILE_ROWS,
-                  (B, NST, MAXQ, G32, K, RLP))
+                  (B, NST, MAXQ, G32, K, RLP), 1 + B * NST)
     v25.launches += 1
     return out
 
@@ -401,16 +458,19 @@ def v27(qs, qbase, loff, pctrl, tq, flat, RLP: int, K: int = 2):
     return out
 
 
-def v13(qs, qbase, pctrl, tq, lit8) -> torch.Tensor:
+def v13(qs, qbase, pctrl, tq, lit8, *,
+        _cluster: int | None = None) -> torch.Tensor:
     """v13 copy engine (one op per slot, 32-row tiles) over one dispatch
     group: the CUDA kernel for CUDA tensors, the plain version for CPU
-    tensors. Returns (B, NT*32, 128) uint8."""
+    tensors. Returns (B, NT*32, 128) uint8. ``_cluster`` forces the
+    cluster size (tests and sweeps only)."""
     args = (qs, qbase, pctrl, tq, lit8)
     if not _on_card("v13", qs):
         return v13_reference(*args)
     B, NT, MAXQ, G32, RLP = _dims(*args, 1, V13_MODE)
+    C = cluster_size(B, NT, V13_ROWS, qs.device, _cluster)
     out = _launch("zxc_copy_engine_v13", args, B, NT * V13_ROWS,
-                  (B, NT, MAXQ, G32, RLP))
+                  (B, NT, MAXQ, G32, RLP, C))
     v13.launches += 1
     return out
 
@@ -445,7 +505,8 @@ def quad(qs, qbase, pctrl, tq, lit8, mode: int, K: int = 2) -> torch.Tensor:
     if B > 65535:
         raise ValueError(f"quad: B {B} is over 65535")
     out = _launch("zxc_copy_engine_quad", args, B, NT * m.rows,
-                  (B, NT, MAXQ, G32, K, RLP, mode))
+                  (B, NT, MAXQ, G32, K, RLP, mode,
+                   cluster_size(B, NT, m.rows, qs.device)))
     quad.launches += 1
     return out
 

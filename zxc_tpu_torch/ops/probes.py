@@ -78,13 +78,14 @@ GRID_MAX_SLICE = 200 << 10
 
 def _quad_launch(name: str, args, mode: CE.QuadMode, entry: str, tail):
     """Checks a v12-packed group for ``mode`` and launches ``entry`` with
-    the words ``tail(RLP)`` after (B, NT, MAXQ, G32); returns (B, NT*32,
-    128) uint8."""
+    the words ``tail(RLP)`` after (B, NT, MAXQ, G32), then the cluster size
+    of ``copy_engine.tile_plan``; returns (B, NT*32, 128) uint8."""
     B, NT, MAXQ, G32, RLP = CE._dims(*args, 1, mode)
     if B > 65535:
         raise ValueError(f"{name}: B {B} is over 65535")
+    C = CE.cluster_size(B, NT, mode.rows, args[0].device)
     return CE._launch(entry, args, B, NT * mode.rows,
-                      (B, NT, MAXQ, G32) + tail(RLP))
+                      (B, NT, MAXQ, G32) + tail(RLP) + (C,))
 
 
 def v13_bisect_reference(qs, qbase, pctrl, tq, lit8, shifted: bool,
