@@ -880,12 +880,19 @@ def main() -> None:
     grp = torch.from_numpy(np.frombuffer(data, np.uint8, DISPATCH * BLOCK)
                            .reshape(DISPATCH, BLOCK).copy()).cuda()
     pc = ENC.lcp_inputs(grp, params.n_candidates)[0]
+    split = EK.lcp_plan(DISPATCH, pc.shape[1], torch.cuda
+                        .get_device_properties(0).multi_processor_count)
     enc_rows = {"lcp": kernel_row(
         "lcp", ENC_SOURCE, ENC_REPLACES["lcp"], lambda: EK.lcp(grp, pc),
         lambda: EK.lcp_reference(grp, pc),
         EK.lcp_bytes_moved(DISPATCH, BLOCK, pc.shape[1]),
         f"B={DISPATCH} n={BLOCK} K={params.n_candidates} "
-        f"pairs={pc.numel()}")}
+        f"pairs={pc.numel()} split={split}")}
+    first, at_cap = EK.lcp_shares(EK.lcp_reference(grp, pc))
+    enc_rows["lcp"]["shares"] = {"first_round": first, "cap": at_cap}
+    print(f"lcp first group: {first:.6f} of the pairs end in the first "
+          f"{EK.LCP_FIRST} bytes (the rest go through the warps' queues), "
+          f"{at_cap:.6f} reach {EK.CAP}", flush=True)
     lens = ENC.find_matches_device_lcp_batch(grp, params.n_candidates)[0]
     walk_steps = {"corpus": ENC.walk_steps(lens, params.lazy,
                                            params.min_emit),

@@ -11,7 +11,10 @@ than the card holds at once, on plans with the longest dependency chain
 and with reads on both sides of the stored-row boundary, and over
 repeated launches on one stream and on two; v13 and v19 at every cluster
 size of the tile routine, with every slot on one target row, and v19
-with three planes; and the cold, hint, serial, v25 and attic decodes
+with three planes; and lcp on all-equal, random and tail blocks and
+garbage words, rows off 16 bytes, and its refused geometries; the window
+merge on plans whose every op covers the whole window, over one round of
+its stage and over two; and the cold, hint, serial, v25 and attic decodes
 (``attic_quad``'s ten entries included), the default expansion route (no
 hand-written kernel),
 ``Seekable.decompress_range_device`` and the device encode against the
@@ -499,6 +502,55 @@ def test_lcp_equals_plain_version_on_card(card, garbage):
         assert torch.equal(out, EK.lcp_reference(blk, pc))
 
 
+@pytest.mark.parametrize("NP", [327_660, 327_661])
+@pytest.mark.parametrize("case", ["equal", "random", "tail", "garbage"])
+def test_lcp_adversarial_blocks_on_card(card, case, NP):
+    """The group's shape (16 blocks of 64 KiB): all-equal blocks (every
+    pair inside the block reaches 256: every warp round queues its 128
+    pairs), random blocks (pairs end in the first round), the tail block
+    of n = 65,536 - 5 with random bytes past n in its row (pairs equal
+    through 255 and 256 bytes, starts at and past n), and garbage words;
+    327,661 pairs a block puts the rows off 16 bytes (the edge lanes).
+    One launch a call, equal to the plain version."""
+    from zxc_tpu_torch.ops import encode_kernels as EK
+    from test_torch_lcp_schedule import lcp_inputs
+    n = 65536 - 5 if case == "tail" else 65536
+    blk, pc = (torch.from_numpy(a).to(card) for a in lcp_inputs(
+        "edge" if case == "tail" else case, 16, n, NP, seed=NP,
+        L=65536))
+    before = EK.lcp.launches
+    out = EK.lcp(blk, pc, n)
+    torch.cuda.synchronize()
+    assert EK.lcp.launches == before + 1
+    assert torch.equal(out, EK.lcp_reference(blk, pc, n))
+    if case == "equal":      # nearly every pair goes through the queue
+        assert float((out == EK.CAP).float().mean()) > 0.9
+
+
+def test_lcp_refuses_a_bad_geometry_on_card(card):
+    """zxc_lcp returns cudaErrorInvalidValue (1) for a split outside
+    [1, 65535], n past 65,536 or the row, a row length off 16 bytes,
+    B past 65,535, NP below 0 and an operand off 16 bytes."""
+    from zxc_tpu_torch.ops import _build
+    lib = _build.encode_kernels()
+    blk = torch.zeros((2, 4096), dtype=torch.uint8, device=card)
+    pc = torch.zeros((2, 64), dtype=torch.int32, device=card)
+    out = torch.empty_like(pc)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def rc(blk_p=blk.data_ptr(), pc_p=pc.data_ptr(), B=2, L=4096, n=4096,
+           NP=64, split=1):
+        return lib.zxc_lcp(blk_p, pc_p, out.data_ptr(), B, L, n, NP, split,
+                           stream)
+
+    assert rc() == 0
+    torch.cuda.synchronize()
+    for bad in (dict(split=0), dict(split=65536), dict(n=65537, L=65552),
+                dict(n=4097), dict(L=4100), dict(B=65536), dict(NP=-1),
+                dict(pc_p=pc.data_ptr() + 4), dict(blk_p=blk.data_ptr() + 8)):
+        assert rc(**bad) == 1, bad
+
+
 @pytest.mark.parametrize("garbage", [False, True])
 def test_parse_walk_equals_plain_version_on_card(card, garbage):
     from zxc_tpu_torch.ops import encode_kernels as EK
@@ -775,6 +827,26 @@ def test_window_merge_equals_plain_version_on_card(card, mode, garbage):
         assert A.window_merge.launches == before + 1
         assert torch.equal(out, A.window_merge_reference(*t, block=block,
                                                          mode=mode))
+
+
+@pytest.mark.parametrize("per_window", [1024, 1300])
+@pytest.mark.parametrize("mode", [4, 5, 6, 7])
+def test_window_merge_whole_window_ops_on_card(card, mode, per_window):
+    """Ops that each cover the whole window (the skip to a round's last
+    whole-window op): 1,024 a window (one full round of the stage) and
+    1,300 (two rounds; the second round's ops cover the first half only,
+    so the second half resolves to an op of the first round, read from
+    the ops array)."""
+    from zxc_tpu_torch.ops import attic as A
+    from test_torch_window_schedule import cover_plan
+    t = [torch.from_numpy(a).to(card)
+         for a in cover_plan(per_window, 4, 16384, mode, per_window)]
+    before = A.window_merge.launches
+    out = A.window_merge(*t, block=16384, mode=mode)
+    torch.cuda.synchronize()
+    assert A.window_merge.launches == before + 1
+    assert torch.equal(out, A.window_merge_reference(*t, block=16384,
+                                                     mode=mode))
 
 
 @pytest.mark.parametrize("garbage", [False, True])

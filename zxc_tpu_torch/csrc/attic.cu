@@ -60,13 +60,37 @@
 // nothing.
 //
 // What bounds it: bytes are few (16 bytes an op, each literal byte once,
-// the output once: about 5 MB a group of 16 blocks of 64 KiB, 1.5 us at
-// 3.35 TB/s), and every thread walks every op of its window. Design: one
-// CTA per (block, window), 256 threads of 4 output bytes; the window's
-// ops are staged 256 at a time into shared memory (one 16-byte load a
-// thread) and every thread reads each op as a broadcast, skips the ops
-// that miss its 4 bytes and keeps the last value per byte in registers;
-// one 32-bit store a thread at the end.
+// the output once: 4,025,993 B for the first group of 16 blocks of
+// 64 KiB in mode 4, 0.0012 ms at 3.35 TB/s), and so is the work: a packed
+// plan's ops (about 124 a window) cover each output byte about once.
+// Times below: lcp_merge_ab.py on an NVIDIA H100 80GB HBM3, 700.00 W,
+// back to back. The earlier form of this kernel had each of 256 threads
+// test every op of its window against its 4 bytes (about 32 K op tests
+// for some 1 K byte writes a window), 0.0315 ms on that group.
+//
+// Design: one CTA per (block, window), 256 threads. (1) Cover: the
+// window's ops are staged kMergeStage at a time (16 KiB); each op's
+// clipped length max(0, min(dhi, 1024) - min(dlo, 1024)) goes through a
+// block-wide exclusive scan, and the round's covered bytes from its last
+// op that covers the whole window on (the ops before it cover nothing it
+// does not) are shared out a contiguous share a warp, lanes on
+// consecutive bytes; a lane finds its first byte's op by a binary search
+// of the scan and steps on, and atomicMax-es the op's index into
+// last[pos] (1024 int32 in shared memory from -1): the largest index is
+// the last op in order, so any order of ops gives the last one. The work
+// is the bytes the ops cover. (2) Resolve: each thread takes 4
+// positions, reads last[], loads each position's op (from the stage when
+// it lies in the last round, else through the read-only cache) and its
+// lit byte, the 4 loads independent, and stores one 32-bit word; a
+// position no op covers is 0.
+//
+// Measured (mode 4's first group, ms): the design 0.0112 (modes 5-7 the
+// same); the launch, wstart reads and stores alone 0.0038; with the cover
+// 0.0095; stage rounds of 256 ops 0.0112; a binary search a covered byte
+// 0.0114. On a group whose 124 ops a window each cover the whole window:
+// 0.0093, the earlier form 0.0812; without the skip to the last
+// whole-window op 0.1000. The time is the launch and each CTA's chain of
+// dependent loads and barriers, not bytes or issue.
 //
 // == Lane sum: attic.decode_blocks_v9 / v10 / v11.
 //
@@ -117,7 +141,8 @@ namespace {
 
 constexpr int kWindow = 1024;
 constexpr int kThreads = kWindow / 4;
-constexpr int kStageOps = kThreads;          // window ops staged a round
+constexpr int kMergeStage = 1024;            // window ops staged a round
+constexpr int kWarps = kThreads / 32;
 constexpr int kTile = 4096;
 constexpr int kTileRows = kTile / 128;       // 32 sublanes, a warp each
 constexpr int kLaneThreads = kTileRows * 32;
@@ -238,11 +263,61 @@ __device__ __forceinline__ uint32_t pack_low_bytes(uint32_t a, uint32_t b,
   return (a & 255u) | (b & 255u) << 8 | (c & 255u) << 16 | (d & 255u) << 24;
 }
 
+// A window's op index for each covered byte: the block-wide exclusive
+// scan of the round's clipped op lengths into `first` (first[i] is op i's
+// first covered byte, 4 ops a thread); returns the round's covered bytes.
+// `full` (-1 before) takes the last op that covers the whole window.
+__device__ __forceinline__ int scan_lengths(const int4* stage, int n,
+                                            int* first, int* sums,
+                                            int* full) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int len[4], s = 0;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const int i = 4 * threadIdx.x + q;
+    len[q] = 0;
+    if (i < n) {
+      const int z = stage[i].z;
+      len[q] = max(0, min((int)((unsigned)z >> 16), kWindow) -
+                          min(z & 0xFFFF, kWindow));
+      if (len[q] == kWindow) atomicMax(full, i);
+    }
+    s += len[q];
+  }
+  int inc = s;
+  for (int o = 1; o < 32; o <<= 1) {
+    const int v = __shfl_up_sync(~0u, inc, o);
+    if (lane >= o) inc += v;
+  }
+  if (lane == 31) sums[warp] = inc;
+  __syncthreads();
+  if (warp == 0) {
+    int w = lane < kWarps ? sums[lane] : 0;
+    for (int o = 1; o < kWarps; o <<= 1) {
+      const int v = __shfl_up_sync(~0u, w, o);
+      if (lane >= o) w += v;
+    }
+    if (lane < kWarps) sums[lane] = w;
+  }
+  __syncthreads();
+  int x = (warp ? sums[warp - 1] : 0) + inc - s;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    if (4 * threadIdx.x + q < n) first[4 * threadIdx.x + q] = x;
+    x += len[q];
+  }
+  return sums[kWarps - 1];
+}
+
 __global__ void __launch_bounds__(kThreads) window_merge_kernel(
     const int32_t* __restrict__ wstart, const int4* __restrict__ ops,
     int cap, const uint8_t* __restrict__ lit, int rl,
     uint8_t* __restrict__ out, int block, int wrows, int unroll) {
-  __shared__ int4 stage[kStageOps];
+  __shared__ int4 stage[kMergeStage];
+  __shared__ int first[kMergeStage];
+  __shared__ int last[kWindow];     // the last op covering each position
+  __shared__ int sums[kWarps];
+  __shared__ int full;              // a round's last whole-window op
   const int nw = block / kWindow;
   const int b = blockIdx.y, wi = blockIdx.x;
   const int32_t* ws = wstart + (long long)b * (nw + 1);
@@ -254,28 +329,62 @@ __global__ void __launch_bounds__(kThreads) window_merge_kernel(
   const uint8_t* lb = lit + (long long)b * rl * 128;
   const unsigned wmask = (unsigned)(wrows * 128 - 1);
   const int p = 4 * threadIdx.x;   // the thread's first byte in the window
-  uint32_t acc[4] = {0u, 0u, 0u, 0u};
-  for (long long c0 = t0; c0 < t1; c0 += kStageOps) {
-    const int n = (int)min((long long)kStageOps, t1 - c0);
-    __syncthreads();   // every thread is done with the previous round
-    if ((int)threadIdx.x < n) stage[threadIdx.x] = ob[c0 + threadIdx.x];
-    __syncthreads();
-    for (int i = 0; i < n; ++i) {
-      const int4 op = stage[i];
-      const int dlo = op.z & 0xFFFF;
-      const int dhi = (int)((unsigned)op.z >> 16);
-      if (dhi <= p || dlo >= p + 4) continue;   // misses the thread's bytes
-      int r = op.x < 0 ? op.x + rl : op.x;
-      r = min(max(r, 0), rl - wrows);
-      const uint8_t* src = lb + (long long)r * 128;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int pos = p + q;
-        if (pos < dlo || pos >= dhi) continue;
-        acc[q] = op.w > 0 ? (uint32_t)(op.w - 1)
-                          : src[((unsigned)pos + (unsigned)op.y) & wmask];
+  for (int q = 0; q < 4; ++q) last[p + q] = -1;
+  // (1) cover: each round's covered bytes, found by a search of the scan,
+  // take the op's index by atomicMax (the last op in order wins)
+  long long lr = t1;   // where the last round starts
+  for (long long c0 = t0; c0 < t1; c0 += kMergeStage) {
+    const int n = (int)min((long long)kMergeStage, t1 - c0);
+    lr = c0;
+    __syncthreads();   // every thread is done with the previous round
+    for (int i = threadIdx.x; i < n; i += kThreads) stage[i] = ob[c0 + i];
+    if (threadIdx.x == 0) full = -1;
+    __syncthreads();
+    const int total = scan_lengths(stage, n, first, sums, &full);
+    __syncthreads();
+    // the bytes from the last op that covers the whole window on (the ops
+    // before it cover nothing it does not), a warp a contiguous share, its
+    // lanes on consecutive ones (consecutive positions of an op: no bank
+    // conflicts); a lane finds its first byte's op by a binary search of
+    // the scan, and the op of each later byte by stepping on
+    const int j0 = full < 0 ? 0 : first[full];
+    const int share = (total - j0 + kWarps - 1) / kWarps;
+    const int j1 = min(total, j0 + (warp + 1) * share);
+    int i = -1, at = 0;   // the lane's op, and its position less its byte
+    for (int j = j0 + warp * share + lane; j < j1; j += 32) {
+      if (i < 0) {
+        int lo = 0, hi = n;   // the last op whose first covered byte <= j
+        while (lo < hi) {
+          const int mid = (lo + hi) >> 1;
+          if (first[mid] <= j) lo = mid + 1; else hi = mid;
+        }
+        i = lo - 1;
+        at = min(stage[i].z & 0xFFFF, kWindow) - first[i];
+      } else if (i + 1 < n && first[i + 1] <= j) {
+        do ++i; while (i + 1 < n && first[i + 1] <= j);
+        at = min(stage[i].z & 0xFFFF, kWindow) - first[i];
       }
+      atomicMax(&last[at + j], (int)(c0 - t0) + i);
     }
+  }
+  __syncthreads();
+  // (2) resolve: each position's op, from the stage when it lies in the
+  // last round, and its byte
+  uint32_t acc[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const int t = last[p + q];
+    acc[q] = 0u;
+    if (t < 0) continue;
+    const long long g = t0 + t;
+    const int4 op = g >= lr ? stage[g - lr] : __ldg(ob + g);
+    int r = op.x < 0 ? op.x + rl : op.x;
+    r = min(max(r, 0), rl - wrows);
+    acc[q] = op.w > 0 ? (uint32_t)(op.w - 1)
+                      : lb[(long long)r * 128 +
+                           (((unsigned)(p + q) + (unsigned)op.y) & wmask)];
   }
   *reinterpret_cast<uint32_t*>(out + (long long)b * block +
                                (long long)wi * kWindow + p) =

@@ -19,17 +19,50 @@
 // pair whose positions lie in [0, 65536), so none reads outside a buffer.
 //
 // What bounds it on the card: bytes. One dispatch group (16 blocks of
-// 64 KiB, 5 candidates a position at level 3) moves the blocks once
-// (1 MiB), a 4-byte word in and a 4-byte result out per pair (about
-// 43 MB for 5.2 M pairs): some 13 us at 3.35 TB/s; the compares are a few
-// integer operations a byte. Design: a CTA stages its block in shared
-// memory (64 KiB at most, as 32-bit words) with 16-byte loads and masks
-// the bytes past n; each thread then takes pairs, reads both sides as
-// unaligned 4-byte windows (two shared words and a funnel shift, words
-// past the block read 0) and stops at the first differing byte (__ffs of
-// the XOR). Several CTAs share a block so the grid fills the card; each
-// stages its own copy. Bank conflicts on random candidate addresses, and
-// the warp waiting for its longest pair, are left for later work.
+// 64 KiB, 5 candidates a position at level 3: 5,242,560 pairs) moves the
+// blocks once (1 MiB), a 4-byte word in and a 4-byte result out per pair
+// (42,989,056 B): 0.0128 ms at 3.35 TB/s. Past the bytes, the compares
+// are shared-memory loads at random candidate addresses, whose bank
+// conflicts grow with the bytes a pair compares: on the first group of
+// the pinned corpus 99.995% of pairs differ within 32 bytes and 73%
+// within 8, 0.0015% reach 256. Times below: lcp_merge_ab.py on an NVIDIA
+// H100 80GB HBM3, 700.00 W, back to back. The earlier form of this kernel
+// (17 CTAs a block each staging the block with 16-byte loads, a bound
+// test on every 4-byte window, a warp as long as its longest pair) read
+// 0.0485 ms on that group, 0.4432 on all-equal blocks.
+//
+// Design. (1) Stage: each CTA copies its block's first n & ~15 bytes into
+// shared memory with cp.async.bulk (16 KiB pieces on one mbarrier) while
+// its threads write the bytes from there to kMargin past it: the row's
+// below n, zeros from n on (the row's bytes past n are never read). Every
+// start is clamped to min(p, n), exact since a start at or past n reads
+// 256 zeros either way, so no compare tests a bound. (2) Pair words by 16
+// bytes: a thread loads 4 consecutive words as one int4, the next 4
+// while it compares these (the first before the stage lands), and stores
+// its 4 results as one int4; a row off 16 bytes has a scalar edge of at
+// most 3 words at each end. (3) First round, in the pair's lane: up to
+// kFirst bytes, 4 a step from 4-byte loads and a funnel shift a side, the
+// lane stopping at its first difference. (4) A pair equal through kFirst
+// bytes goes on its warp's queue (a ballot and a popcount a pair slot).
+// The warp finishes the queue: 32 pairs at a time a pair a lane from byte
+// kFirst on while kBatch or more are queued (all-equal data: every lane
+// busy, in step), the rest a pair a warp step, lane l comparing bytes
+// [8l, 8l + 8) from two 8-byte loads a side (contiguous across the warp)
+// and the warp's minimum of the lanes' first differing byte, or 256, the
+// result: a rare long pair costs one warp step and holds no other lane.
+// (5) Grid: lcp_plan's split, one CTA of 1,024 threads an SM, 8 a block
+// for a group: each stage serves 41 K pairs, and 32 warps an SM keep the
+// loads in flight.
+//
+// Measured (first group / all-equal blocks, ms): the design 0.0269 /
+// 0.1948, 2.1x its bound; the I/O alone (no stage, no compare) 0.0142,
+// with the stage 0.0146; next words loaded only when taken 0.0295;
+// long pairs finished in their lane 0.0318 / 0.1922; every queued pair a
+// warp step 0.0267 / 0.3660; a first round of 16 bytes 0.0336; of 32
+// bytes in one piece from 16-byte loads 0.0385; CTAs of 256 threads, 3
+// an SM, 0.0320, of 512, 2 an SM, 0.0283; splits of 4 and 16 a block
+// 0.0463 and 0.0295. What is left above the I/O is the first round's
+// random-address shared loads.
 //
 // Parse walk. For block b, a cursor starts at 0 and, while it is below P,
 // reads s = step[b, cursor]; when s > 1 it records the cursor at
@@ -81,53 +114,226 @@
 namespace {
 
 constexpr int kCap = 256;          // 128 * ROUNDS of the JAX kernel
-constexpr int kLcpThreads = 512;
 constexpr int kMaxBlock = 65536;   // shared-memory stage of one block
+constexpr int kLcpThreads = 1024;
+constexpr int kLcpWarps = kLcpThreads / 32;
+constexpr int kFirst = 32;         // bytes of the first round, in the lane
+// Staged bytes past n & ~15: the reads of a start s <= n end before
+// s + 264 (the finish's last 8-byte pair of loads), n & ~15 >= n - 15.
+constexpr int kMargin = kCap + 48;
+constexpr int kQueue = 4 * 32;     // long pairs a warp queues in a round
+constexpr int kBatch = 16;         // fewest queued pairs taken a lane each
+constexpr uint32_t kFillPiece = 16 << 10;   // bytes a bulk copy
+constexpr long long kSpinLimit = 1LL << 31;  // mbarrier polls before a trap
 constexpr int kWalkThreads = 1024;      // one chunk a thread
 constexpr int kWalkSharedMax = 65536;   // rows staged as uint16 in shared memory
 
-// 32-bit word k >= 0 of the zero-extended block (nw words hold bytes < n)
-__device__ __forceinline__ uint32_t word_at(const uint32_t* w, int k,
-                                            int nw) {
-  return k < nw ? w[k] : 0u;
+// The LCP kernel's dynamic shared memory for blocks of n bytes.
+__host__ __device__ constexpr int lcp_stage_bytes(int n) {
+  return (n & ~15) + kMargin;
 }
 
-// bytes x .. x+3 of the zero-extended block, little endian, any x >= 0
-__device__ __forceinline__ uint32_t bytes4(const uint32_t* w, int x, int nw) {
-  const int k = x >> 2;
-  const int sh = (x & 3) * 8;
-  return __funnelshift_r(word_at(w, k, nw), word_at(w, k + 1, nw), sh);
+__device__ __forceinline__ uint32_t shared_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
 }
 
-__global__ void __launch_bounds__(kLcpThreads) lcp_kernel(
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  for (long long n = 0;; ++n) {
+    uint32_t done;
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+    if (done) return;
+    if (n == kSpinLimit) __trap();   // a copy that never lands
+  }
+}
+
+// The block's bytes [0, n & ~15) by bulk copies on the mbarrier `bar`
+// (issued by thread 0), then bytes up to lcp_stage_bytes(n) by the
+// threads: the row's below n, 0 from n on. Returns with the stage
+// complete for every thread.
+__device__ __forceinline__ void stage_block(unsigned char* st,
+                                            const uint8_t* src, int n,
+                                            uint64_t* bar) {
+  const uint32_t nf = (uint32_t)(n & ~15);
+  const uint32_t b = shared_addr(bar);
+  if (nf && threadIdx.x == 0) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" :: "r"(b)
+                 : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+                 :: "r"(b), "r"(nf) : "memory");
+    for (uint32_t o = 0; o < nf; o += kFillPiece)
+      asm volatile(
+          "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+          " [%0], [%1], %2, [%3];"
+          :: "r"(shared_addr(st) + o),
+             "l"((uint64_t)__cvta_generic_to_global(src + o)),
+             "r"(min(kFillPiece, nf - o)), "r"(b)
+          : "memory");
+  }
+  for (int x = (int)nf + threadIdx.x; x < lcp_stage_bytes(n);
+       x += kLcpThreads)
+    st[x] = x < n ? src[x] : 0;
+  __syncthreads();   // the barrier is initialised before anyone waits
+  if (nf) mbar_wait(b, 0);
+}
+
+// The first differing byte of the stage's bytes from p and from c in
+// [from, to), or `to` when they agree there: 4 bytes a step, one 4-byte
+// load and a funnel shift a side, each lane stopping at its first
+// difference.
+__device__ __forceinline__ int lane_lcp(const unsigned char* st, int p,
+                                        int c, int from, int to) {
+  const uint32_t* w = reinterpret_cast<const uint32_t*>(st);
+  const uint32_t* wp = w + ((p + from) >> 2);
+  const uint32_t* wc = w + ((c + from) >> 2);
+  const int sp = 8 * (p & 3), sc = 8 * (c & 3);
+  uint32_t a0 = *wp, b0 = *wc;
+#pragma unroll 2
+  for (int r = from; r < to; r += 4) {
+    const uint32_t a1 = *++wp, b1 = *++wc;
+    const uint32_t d =
+        __funnelshift_r(a0, a1, sp) ^ __funnelshift_r(b0, b1, sc);
+    if (d) return r + ((__ffs(d) - 1) >> 3);
+    a0 = a1;
+    b0 = b1;
+  }
+  return to;
+}
+
+// the stage's 8 bytes x .. x+7, little endian, from two 8-byte loads
+__device__ __forceinline__ uint64_t stage_u64(const unsigned char* st,
+                                              int x) {
+  const uint64_t* w = reinterpret_cast<const uint64_t*>(st + (x & ~7));
+  const int sh = 8 * (x & 7);
+  const uint64_t lo = w[0];
+  return sh ? (lo >> sh) | (w[1] << (64 - sh)) : lo;
+}
+
+// The warp's finish of its `queued` long pairs, each result replacing the
+// pair's word. While kBatch or more are left, 32 at a time a pair a lane
+// from byte kFirst on (where many lanes hold a long pair they run in
+// step); the rest a pair a warp step: lane l compares bytes [8l, 8l + 8)
+// of both sides, and the warp's minimum of the lanes' first differing
+// byte, or 256, is the result (a long pair among short ones holds no
+// other lane).
+__device__ __forceinline__ void warp_finish(const unsigned char* st, int n,
+                                            uint32_t* queue, int queued,
+                                            int lane) {
+  int e = 0;
+  for (; queued - e >= kBatch; e += 32) {
+    if (e + lane < queued) {
+      const uint32_t word = queue[e + lane];
+      queue[e + lane] = (uint32_t)lane_lcp(
+          st, min((int)(word >> 16), n), min((int)(word & 0xFFFFu), n),
+          kFirst, kCap);
+    }
+  }
+  for (; e < queued; ++e) {
+    const uint32_t word = queue[e];
+    const int p = min((int)(word >> 16), n);
+    const int c = min((int)(word & 0xFFFFu), n);
+    const uint64_t d =
+        stage_u64(st, p + 8 * lane) ^ stage_u64(st, c + 8 * lane);
+    const int r = __reduce_min_sync(
+        ~0u, d ? 8 * lane + ((__ffsll((long long)d) - 1) >> 3) : kCap);
+    __syncwarp();
+    if (lane == 0) queue[e] = (uint32_t)r;
+  }
+}
+
+// A warp's round: each lane's `cnt` (0-4; 4 where it is 16-byte aligned)
+// pair words `w` from flat index f, through the first round and the
+// warp's queue; results stored where the words were read.
+__device__ __forceinline__ void lcp_round(const unsigned char* st, int n,
+                                          uint32_t* queue,
+                                          int32_t* __restrict__ out,
+                                          long long f, int cnt,
+                                          const uint32_t (&w)[4], int lane) {
+  int m[4], slot[4];
+  int queued = 0;   // the same in every lane
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int p = min((int)(w[j] >> 16), n);
+    const int c = min((int)(w[j] & 0xFFFFu), n);
+    m[j] = lane_lcp(st, p, c, 0, kFirst);
+    const bool lng = j < cnt && m[j] == kFirst;
+    const unsigned ask = __ballot_sync(~0u, lng);
+    slot[j] = queued + __popc(ask & ((1u << lane) - 1u));
+    if (lng) queue[slot[j]] = w[j];
+    queued += __popc(ask);
+  }
+  if (queued) {
+    __syncwarp();
+    warp_finish(st, n, queue, queued, lane);
+    __syncwarp();
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (j < cnt && m[j] == kFirst) m[j] = (int)queue[slot[j]];
+    __syncwarp();   // every lane has its results before the queue is reused
+  }
+  if (cnt == 4) {
+    __stcs(reinterpret_cast<int4*>(out + f),
+           make_int4(m[0], m[1], m[2], m[3]));
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (j < cnt) out[f + j] = m[j];
+  }
+}
+
+// the 4 pair words of group g of a body from flat index f0, or 0s past g1
+__device__ __forceinline__ void load_group(const int32_t* __restrict__ pc,
+                                           long long f0, long long g,
+                                           long long g1, uint32_t (&w)[4]) {
+  int4 v = make_int4(0, 0, 0, 0);
+  if (g < g1) v = __ldcs(reinterpret_cast<const int4*>(pc + f0 + 4 * g));
+  w[0] = v.x; w[1] = v.y; w[2] = v.z; w[3] = v.w;
+}
+
+// grid (split, B): CTA x of block b takes the block's pair words in 4-word
+// groups [x * per, (x + 1) * per) of the 16-byte aligned body, a lane's
+// next group loaded while it compares the current one (the first before
+// the stage lands); CTA 0's warp 0 also the at most 3 words before the
+// body and 3 after it.
+__global__ void __launch_bounds__(kLcpThreads, 1) lcp_kernel(
     const uint8_t* __restrict__ blk, long long L, int n,
     const int32_t* __restrict__ pc, int32_t* __restrict__ out,
     long long NP) {
-  extern __shared__ uint4 stage[];
-  uint32_t* w = reinterpret_cast<uint32_t*>(stage);
-  const int b = blockIdx.y;
-  const int nw = (n + 3) >> 2;
-  const int n16 = (n + 15) >> 4;
-  const uint4* src = reinterpret_cast<const uint4*>(blk + (long long)b * L);
-  for (int i = threadIdx.x; i < n16; i += blockDim.x) stage[i] = src[i];
-  __syncthreads();
-  if (threadIdx.x == 0 && (n & 3))   // bytes n .. 4*nw-1 read 0
-    w[nw - 1] &= (1u << (8 * (n & 3))) - 1u;
-  __syncthreads();
-  const long long row = (long long)b * NP;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       i < NP; i += (long long)gridDim.x * blockDim.x) {
-    const uint32_t word = (uint32_t)pc[row + i];
-    const int pp = (int)(word >> 16), cc = (int)(word & 0xFFFFu);
-    int m = kCap;
-    for (int r = 0; r < kCap; r += 4) {
-      const uint32_t d = bytes4(w, pp + r, nw) ^ bytes4(w, cc + r, nw);
-      if (d) {
-        m = r + ((__ffs(d) - 1) >> 3);
-        break;
-      }
-    }
-    out[row + i] = m;
+  extern __shared__ __align__(128) unsigned char stage[];
+  __shared__ __align__(8) uint64_t bar;
+  __shared__ uint32_t queues[kLcpWarps][kQueue];
+  const int b = blockIdx.y, lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  uint32_t* queue = queues[warp];
+  const long long R = (long long)b * NP;
+  const long long head = min((4 - (R & 3)) & 3, NP);
+  const long long G = (NP - head) >> 2;
+  const long long per = (G + gridDim.x - 1) / gridDim.x;
+  const long long g0 = min(G, (long long)blockIdx.x * per);
+  const long long g1 = min(G, g0 + per);
+  const long long f0 = R + head;
+  uint32_t w[4];
+  long long g = g0 + warp * 32;
+  load_group(pc, f0, g + lane, g1, w);
+  stage_block(stage, blk + (long long)b * L, n, &bar);
+  for (; g < g1; g += kLcpThreads) {
+    uint32_t next[4];
+    load_group(pc, f0, g + kLcpThreads + lane, g1, next);
+    lcp_round(stage, n, queue, out, f0 + 4 * (g + lane),
+              g + lane < g1 ? 4 : 0, w, lane);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) w[j] = next[j];
+  }
+  if (blockIdx.x == 0 && warp == 0) {   // the row's unaligned edges
+    const long long tail = NP - head - 4 * G;
+    const long long f = lane < head ? R + lane : R + 4 * G + lane;
+    const int cnt = lane < head + tail ? 1 : 0;
+    w[0] = cnt ? (uint32_t)__ldcs(pc + f) : 0u;
+    w[1] = w[2] = w[3] = 0u;
+    lcp_round(stage, n, queue, out, f, cnt, w, lane);
   }
 }
 
@@ -435,28 +641,22 @@ extern "C" {
 // Every entry returns a cudaError_t (0 = launched) and launches on
 // `stream`. Shapes, types and alignment are checked by the Python wrapper.
 
-// blk (B, L) uint8 with L % 16 == 0 and a 16-byte aligned base,
-// 0 <= n <= min(L, 65536); pc, out (B, NP) int32.
+// blk (B, L) uint8 with L % 16 == 0, 0 <= n <= min(L, 65536); pc, out
+// (B, NP) int32; blk, pc and out 16-byte aligned; `split` CTAs a block
+// (encode_kernels.lcp_plan), 1 to 65535, and B at most 65535. A geometry
+// the kernel cannot run gives cudaErrorInvalidValue.
 int zxc_lcp(const uint8_t* blk, const int32_t* pc, int32_t* out, int B,
-            long long L, int n, long long NP, void* stream) {
+            long long L, int n, long long NP, int split, void* stream) {
+  if (B < 0 || B > 65535 || NP < 0 || n < 0 || n > kMaxBlock || n > L ||
+      (L & 15) || split < 1 || split > 65535 ||
+      (((uintptr_t)blk | (uintptr_t)pc | (uintptr_t)out) & 15))
+    return (int)cudaErrorInvalidValue;
   if (B == 0 || NP == 0) return 0;
-  if (n < 0 || n > kMaxBlock || n > L || (L & 15)) return (int)cudaErrorInvalidValue;
-  int dev = 0, sms = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const cudaError_t e = cudaFuncSetAttribute(
+      lcp_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      lcp_stage_bytes(kMaxBlock));
   if (e != cudaSuccess) return (int)e;
-  const int smem = ((n + 15) >> 4) * 16;
-  e = cudaFuncSetAttribute(lcp_kernel,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           kMaxBlock);
-  if (e != cudaSuccess) return (int)e;
-  // about two waves of CTAs over the card, never more than the pairs need
-  const long long per_block = (NP + kLcpThreads - 1) / kLcpThreads;
-  long long split = (2LL * sms + B - 1) / B;
-  if (split > per_block) split = per_block;
-  if (split > 65535) split = 65535;
-  lcp_kernel<<<dim3((unsigned)split, B), kLcpThreads, smem,
+  lcp_kernel<<<dim3((unsigned)split, B), kLcpThreads, lcp_stage_bytes(n),
                (cudaStream_t)stream>>>(blk, L, n, pc, out, NP);
   return (int)cudaGetLastError();
 }

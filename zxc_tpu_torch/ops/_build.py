@@ -77,7 +77,7 @@ def _bind_copy_engine(L, vp, ci) -> None:
 def _bind_encode(L, vp, ci) -> None:
     i64 = ctypes.c_longlong
     L.zxc_lcp.restype = ci
-    L.zxc_lcp.argtypes = [vp] * 3 + [ci, i64, ci, i64, vp]
+    L.zxc_lcp.argtypes = [vp] * 3 + [ci, i64, ci, i64, ci, vp]
     L.zxc_parse_walk.restype = ci
     L.zxc_parse_walk.argtypes = [vp] * 5 + [ci] * 7 + [vp]
 

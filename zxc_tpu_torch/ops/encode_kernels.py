@@ -23,13 +23,17 @@ Replaces ``zxc_tpu/ops/pallas_encode.py``: ``_make_lcp_body`` /
 
 Bounds on the card: both kernels' bounds are bytes. The LCP kernel's
 (``lcp_bytes_moved``) are the blocks once, a 4-byte word in and a 4-byte
-result out per pair; the walk's (``walk_bytes_moved``) are the steps its
-chain reads and the entries it writes, a microsecond or two. The chain of
-up to P dependent steps a block (``walk_chain``, a statistic) is no floor:
-the kernel walks the chunks of ``walk_plan`` in parallel and lets the
-walks synchronize themselves (two walks are one from the first position
-both reach), in rounds until no chunk's exit changes, with a serial finish
-where walks never meet (``WALK_MAX_ROUNDS``; ``walk_rounds`` reads the
+result out per pair. Its CTAs (``lcp_plan`` a block, one wave) each stage
+their block once in shared memory and take 4 pair words a thread a
+round; a pair still equal after its first ``LCP_FIRST`` bytes goes to its
+warp's queue, which the warp finishes (``lcp_shares`` reads how many;
+``csrc/encode.cu`` says how). The walk's (``walk_bytes_moved``) are the
+steps its chain reads and the entries it writes, a microsecond or two.
+The chain of up to P dependent steps a block (``walk_chain``, a
+statistic) is no floor: the kernel walks the chunks of ``walk_plan`` in
+parallel and lets the walks synchronize themselves (two walks are one
+from the first position both reach), in rounds until no chunk's exit
+changes, with a serial finish where walks never meet (``WALK_MAX_ROUNDS``; ``walk_rounds`` reads the
 rounds; ``csrc/encode.cu`` says how). What holds it above its bound is
 its one SM a block, 16 of the card's 132 for a group.
 On a CPU tensor a wrapper runs the plain PyTorch version; on a CUDA tensor
@@ -49,6 +53,9 @@ from .copy_engine import _on_card
 
 CAP = 256            # 128 * ROUNDS of the JAX kernel
 MAX_BLOCK = 65536    # the LCP kernel stages one block in shared memory
+LCP_THREADS = 1024   # threads of an LCP CTA, 4 pair words each a round
+LCP_CTAS_PER_SM = 1  # LCP CTAs an SM, each staging 64 KiB and a margin
+LCP_FIRST = 32       # bytes of the LCP kernel's first round, in the lane
 _WIN = 16            # bytes per compare window of the plain LCP
 _CHUNK = 1 << 18     # pairs per gather of the plain LCP
 # The parse walk's geometry: one chunk a thread of a 1024-thread CTA; rows
@@ -126,6 +133,22 @@ def lcp_reference(blk, pc, n: int | None = None) -> torch.Tensor:
     return out.view(B, -1)
 
 
+def lcp_plan(B: int, NP: int, sms: int) -> int:
+    """The LCP kernel's CTAs a block: one wave of ``LCP_CTAS_PER_SM`` CTAs
+    an SM over the ``B`` blocks, and no more CTAs than a block has rounds
+    of pair words (``LCP_THREADS`` groups of 4 a CTA round)."""
+    rounds = -(-NP // (4 * LCP_THREADS))
+    return max(1, min(LCP_CTAS_PER_SM * sms // max(B, 1), rounds, 65535))
+
+
+def lcp_shares(lcp: torch.Tensor) -> tuple[float, float]:
+    """Of a call's LCPs: the share of pairs that end in the kernel's first
+    round (below ``LCP_FIRST``; the rest go through its warps' queues) and
+    the share that reach ``CAP``."""
+    return (float((lcp < LCP_FIRST).float().mean()),
+            float((lcp == CAP).float().mean()))
+
+
 def lcp(blk, pc, n: int | None = None) -> torch.Tensor:
     """LCP match extension over B blocks: ``blk`` (B, L) uint8 holding
     each block's n <= 65536 bytes (n defaults to L), packed pairs ``pc``
@@ -141,10 +164,13 @@ def lcp(blk, pc, n: int | None = None) -> torch.Tensor:
         blk = torch.nn.functional.pad(blk, (0, -blk.shape[1] % 16))
     if blk.data_ptr() % 16 or not blk.is_contiguous():
         blk = blk.clone(memory_format=torch.contiguous_format)
-    L = blk.shape[1]
-    pc = pc.contiguous()
+    if pc.data_ptr() % 16 or not pc.is_contiguous():
+        pc = pc.clone(memory_format=torch.contiguous_format)
+    L, NP = blk.shape[1], pc.shape[1]
     out = torch.empty(pc.shape, dtype=torch.int32, device=blk.device)
-    _launch("zxc_lcp", blk, (blk, pc, out), (B, L, n, pc.shape[1]))
+    sms = torch.cuda.get_device_properties(blk.device).multi_processor_count
+    _launch("zxc_lcp", blk, (blk, pc, out), (B, L, n, NP,
+                                             lcp_plan(B, NP, sms)))
     lcp.launches += 1
     return out
 
