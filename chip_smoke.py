@@ -29,7 +29,10 @@ Phases, in order; any failure exits non-zero before the result line:
    v19's cluster sizes printed; the attic kernel: the
    64 KiB archive as ``ops.decompress(use_serial=True, variant=2)`` packs
    it; the window merge in modes v4-v7 and the lane sum in modes v9-v11:
-   the same blocks as ``attic.decode_blocks_v4/v9/v10/v11`` pack them;
+   the same blocks as ``attic.decode_blocks_v4/v9/v10/v11`` pack them,
+   and the attic kernel and the lane sum also on their worst cases
+   (``attic_ab``: windows of 1,024 pieces, one piece a block, every lane
+   slot spanning all 128 lanes), checked and not timed;
    ``copy_engine.quad`` in modes v12, v14-v17, v20, v21, v23 and v24: the
    same blocks as ``attic_quad.decode_blocks_vN`` packs them; v25: the
    same blocks resolved with ``self_ref=True`` as
@@ -461,6 +464,32 @@ def attic_rows(AT, pieces, lits, totals, data) -> dict:
     return out
 
 
+def attic_worst_cases(AT, pieces, lits, totals) -> None:
+    """The piece-serial kernel and the lane sum on their hand-made worst
+    cases (``zxc_tpu_torch.attic_ab``): windows of 1,024 one-byte pieces
+    and of 1,024 pieces with one start, one piece a block (v1 and v2), and
+    v10's first group with every slot spanning all 128 lanes; each equal to
+    its plain version."""
+    from zxc_tpu_torch import attic_ab as AB
+    for label, host in AB.piece_worst_cases(lits, 0).items():
+        args = [torch.from_numpy(a).cuda() for a in host]
+        for fill in (False, True):
+            check(torch.equal(
+                AT.piece_serial(*args, block=BLOCK, fill_from_s=fill),
+                AT.piece_serial_reference(*args, block=BLOCK,
+                                          fill_from_s=fill)),
+                f"attic kernel differs on {label} (fill {fill})")
+    _, ts, pctrl, lit8 = AT.pack_blocks_v10(pieces, lits, totals, BLOCK)
+    ts, pctrl, lit8 = (torch.from_numpy(a).cuda()
+                       for a in (ts, AB.all_lanes(pctrl), lit8))
+    check(torch.equal(AT.lane_sum(pctrl, lit8, BLOCK, 10, ts=ts),
+                      AT.lane_sum_reference(pctrl, lit8, BLOCK, 10, ts=ts)),
+          "lane sum differs with every slot spanning all 128 lanes")
+    print("attic kernel (windows of 1,024 one-byte pieces and of 1,024 "
+          "equal starts, one piece a block) and lane sum (every slot all "
+          "128 lanes): equal to their plain versions", flush=True)
+
+
 def quad_rows(CE, Q, pieces, lits, totals, data) -> dict:
     """``copy_engine.quad`` in each attic mode against its plain version on
     one dispatch group, packed as ``attic_quad.decode_blocks_vN`` packs
@@ -858,6 +887,7 @@ def main() -> None:
     del args
     for v, r in attic_rows(AT, pieces, lits, totals64, data).items():
         rows[f"v{v}"] = r
+    attic_worst_cases(AT, pieces, lits, totals64)
     for v, r in quad_rows(CE, AQ, pieces, lits, totals64, data).items():
         rows[f"v{v}"] = r
     rows.update(probe_rows(CE, AT, P, S, pieces, lits, totals64, data))

@@ -14,7 +14,11 @@ size of the tile routine, with every slot on one target row, and v19
 with three planes; and lcp on all-equal, random and tail blocks and
 garbage words, rows off 16 bytes, and its refused geometries; the window
 merge on plans whose every op covers the whole window, over one round of
-its stage and over two; and the cold, hint, serial, v25 and attic decodes
+its stage and over two; the piece-serial kernel on equal starts, windows
+of many one-byte pieces (several stage rounds), literal indices past both
+ends of the row and one piece a block; the lane sum over several chunks
+of 32 batches a tile and with every slot spanning all 128 lanes; and the
+cold, hint, serial, v25 and attic decodes
 (``attic_quad``'s ten entries included), the default expansion route (no
 hand-written kernel),
 ``Seekable.decompress_range_device`` and the device encode against the
@@ -864,6 +868,86 @@ def test_lane_sum_equals_plain_version_on_card(card, mode, garbage):
         assert A.lane_sum.launches == before + 1
         assert torch.equal(out, A.lane_sum_reference(
             pctrl, lit, block, mode, ts=ts, rows=rows, layers=layers))
+
+
+@pytest.mark.parametrize("fill_from_s", [False, True])
+@pytest.mark.parametrize("case", ["edges", "before row", "one-byte windows",
+                                  "one piece a block"])
+def test_attic_kernel_schedule_edges_on_card(card, case, fill_from_s):
+    """The piece-serial kernel's search, stage rounds and owner map on
+    equal starts, windows of 300 and of 1,024 one-byte pieces (several
+    stage rounds), windows of 1,024 pieces with one start, fills, literal
+    indices past both ends of the row, a total inside a window, and one
+    piece spanning each block."""
+    from zxc_tpu_torch import attic_ab as AB
+    from zxc_tpu_torch.ops import attic as A
+    from test_torch_piece_schedule import edge_plans
+    if case in ("edges", "before row"):
+        block = 4096
+        pieces, lits, totals = edge_plans(3, block, case == "before row")
+        host = A.pack_blocks(pieces, lits, totals, block)[0]
+    else:
+        block = AB.BLOCK
+        lits = [np.random.default_rng(j).integers(0, 256, 5000, np.uint8)
+                for j in range(AB.DISPATCH)]
+        host = AB.piece_worst_cases(lits, 0)[
+            "1,024 pieces a window" if case == "one-byte windows"
+            else "one piece a block"]
+    t = [torch.from_numpy(a).to(card) for a in host]
+    before = A.piece_serial.launches
+    out = A.piece_serial(*t, block=block, fill_from_s=fill_from_s)
+    torch.cuda.synchronize()
+    assert A.piece_serial.launches == before + 1
+    assert torch.equal(out, A.piece_serial_reference(
+        *t, block=block, fill_from_s=fill_from_s))
+
+
+@pytest.mark.parametrize("per_tile", [33, 70])
+@pytest.mark.parametrize("mode", [9, 10, 11])
+def test_lane_sum_several_chunks_on_card(card, mode, per_tile):
+    """Tiles of 33 and 70 batches (v11: layers): two and three chunks of
+    32 batches a warp."""
+    from zxc_tpu_torch.ops import attic as A
+    from test_torch_lane_schedule import long_plan
+    ts, rows, pctrl, lit, layers = (
+        torch.from_numpy(a).to(card) if isinstance(a, np.ndarray) else a
+        for a in long_plan(per_tile, 3, 8192, mode, per_tile))
+    before = A.lane_sum.launches
+    out = A.lane_sum(pctrl, lit, 8192, mode, ts=ts, rows=rows, layers=layers)
+    torch.cuda.synchronize()
+    assert A.lane_sum.launches == before + 1
+    assert torch.equal(out, A.lane_sum_reference(
+        pctrl, lit, 8192, mode, ts=ts, rows=rows, layers=layers))
+
+
+@pytest.mark.parametrize("probe", [None, "nomask", "floor", "norotate_add"])
+def test_lane_sum_every_slot_all_lanes_on_card(card, probe):
+    """Every live slot spanning all 128 lanes (the most bytes a slot
+    covers), v10's packing of a corpus group, through the production mode
+    and the probes that cover every lane."""
+    from zxc_tpu_torch import attic_ab as AB
+    from zxc_tpu_torch.ops import attic as A, batch as BT
+    data = _card_corpus(11)
+    arc = Z.compress(data, Z.EncodeOpts(level=3, block_size=16384))
+    plan = BT.plan_frame(arc)
+    pieces, lits = BT.resolve_serial(plan)
+    _, ts, pctrl, lit8 = A.pack_blocks_v10(pieces[:8], lits[:8],
+                                           plan.totals[:8], 16384)
+    ts, pctrl, lit8 = (torch.from_numpy(a).to(card)
+                       for a in (ts, AB.all_lanes(pctrl), lit8))
+    want = A.lane_sum_reference(pctrl, lit8, 16384, 10, ts=ts, probe=probe)
+    if probe is None:
+        out = A.lane_sum(pctrl, lit8, 16384, 10, ts=ts)
+    else:
+        from zxc_tpu_torch.ops import _build
+        L = _build.attic_kernels()
+        out = torch.empty_like(want)
+        A._launch("zxc_lane_sum_probe", L.zxc_lane_sum_probe, ts.data_ptr(),
+                  pctrl.data_ptr(), pctrl.shape[1], lit8.data_ptr(),
+                  lit8.shape[1], out.data_ptr(), 8, 16384,
+                  A.LANE_PROBES[probe])
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
 
 
 def test_attic_kernels_refuse_bad_operands_on_card(card):

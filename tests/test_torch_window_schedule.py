@@ -187,6 +187,8 @@ def test_window_model_equals_plain_version_on_garbage(seed, mode):
 @pytest.mark.parametrize("mode", [4, 5, 6, 7])
 def test_window_model_equals_jax_on_packed_archive(mode):
     from test_torch_attic_ops import WINDOW_BLOCK, PAD, _plans
+    from test_torch_jax_native import jax_native
+    jax_native()      # the archive is resolved by the JAX runtime
     _, totals, pieces, lits = _plans("cross", WINDOW_BLOCK)
     args, _ = A.pack_blocks_v4(pieces, lits, totals, WINDOW_BLOCK,
                                split_src=mode >= 5, pad_unroll=PAD[mode])

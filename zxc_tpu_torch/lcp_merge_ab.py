@@ -204,7 +204,7 @@ COMPARED = ("lcp nopipe", "lcp noqueue", "lcp nobatch", "lcp first16",
             "lcp wide", "lcp threads256", "lcp threads512",
             "window_merge s256", "window_merge noskip",
             "window_merge search")
-_ENTRY = re.compile(r"int (zxc_lcp|zxc_window_merge)\(([^)]*)\)")
+_ENTRY = re.compile(r"int (zxc_\w+)\(([^)]*)\)")
 
 
 def median_ms(fn) -> float:
@@ -240,19 +240,21 @@ def signatures(source: str) -> dict:
 
 
 class Lib:
-    """One built source: its entries called by their parameters' names."""
+    """One built source (under ``build/<subdir>``): its entries called by
+    their parameters' names; ``log`` holds nvcc's and ptxas's output."""
 
-    def __init__(self, name: str, source: str):
+    def __init__(self, name: str, source: str, subdir: str = "lcp_merge_ab"):
         from zxc_tpu_torch.buildlib import build_shared
         from zxc_tpu_torch.ops import _build
-        d = os.path.join(ROOT, "build", "lcp_merge_ab")
+        d = os.path.join(ROOT, "build", subdir)
         os.makedirs(d, exist_ok=True)
-        path = os.path.join(d, re.sub(r"\W", "_", name) + ".cu")
+        stem = re.sub(r"\W", "_", name)
+        path = os.path.join(d, stem + ".cu")
         with open(path, "w") as f:
             f.write(source)
-        self.lib = ctypes.CDLL(build_shared(
-            path, "lm_" + re.sub(r"\W", "_", name),
-            [_build._nvcc()] + _build.NVCC_FLAGS)[0])
+        so, self.log = build_shared(path, f"{subdir}_{stem}",
+                                    [_build._nvcc()] + _build.NVCC_FLAGS)
+        self.lib = ctypes.CDLL(so)
         self.sigs = signatures(source)
 
     def call(self, entry: str, **vals) -> None:
