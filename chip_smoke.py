@@ -39,8 +39,11 @@ Phases, in order; any failure exits non-zero before the result line:
    ``serial.decode_blocks_v25`` packs them; the probes of ``tools/`` in
    every mode their ``main()`` runs (``probes.v13_bisect``,
    ``v12_ablate2`` on v12's packing, ``v10_probe``, ``v12_ablate`` on
-   v10's) on the same blocks, and the gathers at the probes' largest
-   shapes, beside ``torch.gather`` / ``torch.index_select``;
+   v10's) on the same blocks, and the gathers beside ``torch.gather`` /
+   ``torch.index_select``: gather_axis1 at each of the probe's six shapes
+   (a mode each, with its ``probes.grid_plan`` form printed), the grid
+   gather and the row gather at the probes' largest shapes (dma_b with
+   its plan printed);
    lcp and parse_walk: the first 16 blocks of the corpus at level 3 as
    ``ops/encode.py`` feeds them, and parse_walk also on steps of 5 where
    its walks never meet, with the rounds its chunks took to converge
@@ -292,16 +295,19 @@ def kernel_row(name, source, replaces, kern, ref, nbytes, shape,
     return row
 
 
-def modes_row(name, source, replaces, modes, row_of):
+def modes_row(name, source, replaces, modes, row_of, lead=None):
     """One kernel row for a probe run in several modes: ``row_of(mode)``
-    gives each mode's ``kernel_row``; the first mode's numbers stand in
-    the row, every mode's under ``modes``."""
+    gives each mode's ``kernel_row``; the numbers of mode ``lead`` (by
+    default the first) stand in the row, every mode's under ``modes``
+    (with the library's times where the mode has them)."""
     rows = {str(m): row_of(m) for m in modes}
-    row = dict(next(iter(rows.values())), name=name, source=source,
+    row = dict(rows[str(lead)] if lead is not None
+               else next(iter(rows.values())), name=name, source=source,
                replaces=replaces)
     row["max_abs_err"] = max(r["max_abs_err"] for r in rows.values())
     row["modes"] = {m: {k: r[k] for k in ("ms", "b2b_ms", "plain_ms",
-                                          "bound_ms")}
+                                          "bound_ms", "library_ms",
+                                          "library_b2b_ms") if k in r}
                     for m, r in rows.items()}
     return row
 
@@ -587,20 +593,42 @@ def dma_inputs():
     return table, idx
 
 
+def gather_modes() -> dict:
+    """gather_axis1's modes: the probe's six shapes, "(M, N) dtype" ->
+    (M, N, dtype), each with a square index."""
+    shapes = ([(M, N, np.int32) for M, N in GATHER_SHAPES]
+              + [(8, 1 << 16, np.uint8)])
+    return {f"({M}, {N}) {np.dtype(dt).name}": (M, N, dt)
+            for M, N, dt in shapes}
+
+
 def gather_rows_of(P) -> dict:
-    """The gathers against their plain versions at the probes' largest
-    shapes, beside the PyTorch call for the same function (an int64 index
-    made beforehand)."""
+    """The gathers against their plain versions, beside the PyTorch call
+    for the same function (an int64 index made beforehand): gather_axis1
+    at each of the probe's shapes with its ``grid_plan`` (the row's
+    numbers those of (8, 512K)), the grid gather and the row gather at the
+    probes' largest shapes."""
     out = {}
-    M, N = GATHER_SHAPES[2]
-    x, idx = gather_inputs(0, M, N, N)
-    idx64 = idx.long()
-    out["gather_axis1"] = kernel_row(
+
+    def axis1(mode):
+        M, N, dt = modes[mode]
+        x, idx = gather_inputs(0, M, N, N, dt)
+        idx64 = idx.long()
+        plan = P.gather_grid_plan(x, idx, torch.empty_like(idx,
+                                                           dtype=x.dtype))
+        return kernel_row(
+            f"gather_axis1 {mode}", probe_source("gather_axis1"),
+            PROBES["gather_axis1"][1], lambda: P.gather_axis1(x, idx),
+            lambda: P.gather_axis1_reference(x, idx),
+            P.gather_bytes_moved(x, idx),
+            f"x {mode}, idx ({M}, {N}); {plan.form} form, K={plan.K}, "
+            f"{plan.clusters * plan.K * M} CTAs",
+            library=lambda: torch.gather(x, 1, idx64))
+    modes = gather_modes()
+    out["gather_axis1"] = modes_row(
         "gather_axis1", probe_source("gather_axis1"),
-        PROBES["gather_axis1"][1], lambda: P.gather_axis1(x, idx),
-        lambda: P.gather_axis1_reference(x, idx),
-        P.gather_bytes_moved(x, idx), f"x ({M}, {N}) int32, idx ({M}, {N})",
-        library=lambda: torch.gather(x, 1, idx64))
+        PROBES["gather_axis1"][1], list(modes), axis1,
+        lead="(8, 524288) int32")
     M, N, NI, T = GRID_SHAPE
     x, idx = gather_inputs(1, M, N, NI)
     idx64 = idx.long()
@@ -622,6 +650,11 @@ def gather_rows_of(P) -> dict:
     for name, fn in (("dma_a", P.dma_a), ("dma_b", P.dma_b),
                      ("dma_c", P.dma_c)):
         plan = P.row_plan(len(idx), table.shape[1], name[-1])
+        if name == "dma_b":
+            print(f"dma_b: a warp a row, {plan.rows_per_cta} rows a CTA, "
+                  f"{plan.grid} CTAs of {32 * plan.rows_per_cta} threads, "
+                  f"{16 if plan.bulk else 4}-byte copies; {plan}",
+                  flush=True)
         out[name] = kernel_row(
             name, probe_source(name), PROBES[name][1],
             lambda fn=fn: fn(table, idx),

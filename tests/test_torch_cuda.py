@@ -2,9 +2,13 @@
 v13, the attic's quad-tile generations as ``quad`` in modes 12, 14-17, 20,
 21, 23 and 24, lcp, parse_walk, the attic's piece-serial kernel, window
 merge and lane sum, and the probes of ``tools/``: v12's quad ablations,
-the lane-sum probes and the gathers, the row gather's forms also on
-unaligned, long-row and empty tables, indices outside the table and a
-reused output block) against its plain PyTorch version on the card, on
+the lane-sum probes and the gathers: gather_axis1 on the grid gather's
+kernels at the probe's six shapes and at edge shapes of each form, with
+its own launch count; the row gather's forms also on unaligned, long-row
+and empty tables, indices outside the table and a reused output block,
+and form b, a warp a row, on rows of 127, 129 and 256 words, a table off
+16 bytes and G of 1, 1,023 and 3,000, its geometry refused outside 1-32
+warps a CTA) against its plain PyTorch version on the card, on
 valid and on garbage control, misaligned or non-contiguous operands
 refused; v25, v26 and v27 also on a (supertile, block) grid larger
 than the card holds at once, on plans with the longest dependency chain
@@ -1261,14 +1265,14 @@ def test_gathers_equal_plain_version_on_card(card, dtype):
 
 GRID_CASES = {  # x (M, N), idx columns, dtype, form, K
     "probe": ((8, 1 << 16), 1 << 19, torch.int32, "cluster", 2),
-    "m64": ((64, 1 << 16), 1 << 16, torch.int32, "cluster", 2),
-    "u8": ((8, 1 << 16), 1 << 16, torch.uint8, "cluster", 1),
-    "u8_k4": ((2, 600_000), 1 << 15, torch.uint8, "cluster", 4),
-    "n1000": ((3, 1000), 4096, torch.int32, "cluster", 1),
+    "m64": ((64, 1 << 16), 1 << 16, torch.int32, "l2", 1),
+    "u8": ((8, 1 << 16), 1 << 19, torch.uint8, "cluster", 1),
+    "u8_k4": ((2, 600_000), 4_800_000, torch.uint8, "cluster", 4),
+    "n1000": ((3, 1000), 8192, torch.int32, "cluster", 1),
     "n1000_u8": ((8, 1000), 8192, torch.uint8, "cluster", 1),
-    "x_offset": ((4, 3000), 8192, torch.int32, "cluster", 1),
-    "idx_offset": ((8, 1 << 16), 1 << 15, torch.int32, "cluster", 2),
-    "u8_ragged": ((4, 5000), 4104, torch.uint8, "cluster", 1),
+    "x_offset": ((4, 3000), 24576, torch.int32, "cluster", 1),
+    "idx_offset": ((8, 1 << 16), 1 << 19, torch.int32, "cluster", 2),
+    "u8_ragged": ((4, 5000), 40_004, torch.uint8, "cluster", 1),
     "big": ((2, 1 << 20), 1 << 20, torch.int32, "l2", 1),
     "big_offset": ((2, 1 << 20), 1 << 16, torch.int32, "l2", 1),
     "n0": ((3, 0), 4096, torch.int32, "l2", 1),
@@ -1277,12 +1281,14 @@ GRID_CASES = {  # x (M, N), idx columns, dtype, form, K
 
 @pytest.mark.parametrize("case", list(GRID_CASES))
 def test_gather_grid_forms_on_card(card, case):
-    """The grid gather's cluster form (the probe's shape, 64 rows, uint8
-    rows in clusters of 1 and 4, N = 1000 with rows off 16-byte alignment,
-    a table and an index view 4 bytes into their storage, uint8 columns
-    that are no multiple of 16) and its L2 form (a row of 4 MiB, also with
-    an index view 4 bytes off alignment, and an empty row), with indices
-    outside the row: one launch a call, equal to the plain version."""
+    """The grid gather's cluster form, where the index reads each row
+    element 4 times or more (the probe's shape, uint8 rows in clusters of
+    1 and 4, N = 1000 with rows off 16-byte alignment, a table and an
+    index view 4 bytes into their storage, uint8 columns that are no
+    multiple of 16) and its L2 form (64 rows of 256 KiB read once over, a
+    row of 4 MiB, also with an index view 4 bytes off alignment, and an
+    empty row), with indices outside the row: one launch a call, equal to
+    the plain version."""
     from zxc_tpu_torch.ops import probes as P
     (M, N), NI, dtype, form, K = GRID_CASES[case]
     rng = np.random.default_rng(len(case))
@@ -1303,7 +1309,7 @@ def test_gather_grid_forms_on_card(card, case):
                        torch.cuda.get_device_properties(card)
                        .multi_processor_count)
     assert (plan.form, plan.K) == (form, K)
-    assert plan.vec == (case in ("big", "n0"))
+    assert plan.vec == (case in ("big", "n0", "m64"))
     tile = NI // 4 if NI % 4 == 0 else NI
     before = P.gather_grid.launches
     got = P.gather_grid(x, idx, tile)
@@ -1315,22 +1321,112 @@ def test_gather_grid_forms_on_card(card, case):
 def test_gather_grid_refuses_a_bad_geometry_on_card(card):
     from zxc_tpu_torch.ops import probes as P
     x = torch.zeros((8, 65536), dtype=torch.int32, device=card)
-    idx = torch.zeros((8, 1 << 15), dtype=torch.int32, device=card)
+    idx = torch.zeros((8, 1 << 19), dtype=torch.int32, device=card)
     out = torch.empty_like(idx)
-    plan = P.grid_plan(8, 65536, 1 << 15, 4)
+    plan = P.grid_plan(8, 65536, 1 << 19, 4)
+    assert plan.form == "cluster"
     P._launch_grid(x, idx, out, plan)
-    l2 = P.GridPlan(8, 65536, 1 << 15, 4, "l2", 1, 8, 0, 4096, True, 0)
+    l2 = P.l2_plan(8, 65536, 1 << 19, 4, True, 256, 1)
+    assert (l2.clusters, l2.cols) == (128, 4096)
     P._launch_grid(x, idx, out, l2)
     for bad in (plan._replace(K=3), plan._replace(smem=plan.smem + 16),
                 plan._replace(slice=plan.slice - 4, smem=plan.smem - 16),
                 plan._replace(vec=True), plan._replace(clusters=0),
                 plan._replace(cols=plan.cols - 1), l2._replace(cols=2048),
-                l2._replace(clusters=7), l2._replace(K=2),
-                l2._replace(smem=16)):
+                l2._replace(clusters=127), l2._replace(K=2),
+                l2._replace(smem=16), l2._replace(threads=96),
+                plan._replace(threads=256)):
         with pytest.raises(RuntimeError, match="cudaError 1"):
             P._launch_grid(x, idx, out, bad)
     torch.cuda.synchronize()
     assert torch.equal(out, torch.zeros_like(out))
+
+
+AXIS1_CASES = {  # x (M, N), idx columns, dtype, index view off 16 B, form
+    "probe_8x8K": ((8, 1 << 13), 1 << 13, torch.int32, False, "l2"),
+    "probe_8x64K": ((8, 1 << 16), 1 << 16, torch.int32, False, "l2"),
+    "probe_8x512K": ((8, 1 << 19), 1 << 19, torch.int32, False, "l2"),
+    "probe_64x64K": ((64, 1 << 16), 1 << 16, torch.int32, False, "l2"),
+    "probe_256x8K": ((256, 1 << 13), 1 << 13, torch.int32, False, "l2"),
+    "probe_8x64K_u8": ((8, 1 << 16), 1 << 16, torch.uint8, False, "l2"),
+    "cluster_k1": ((3, 500), 4099, torch.int32, True, "cluster"),
+    "cluster_k4_u8": ((2, 600_000), 4_800_005, torch.uint8, True,
+                      "cluster"),
+    "l2_offset": ((2, 1 << 20), 4100, torch.int32, True, "l2"),
+    "l2_u8_offset": ((2, 2_000_000), 4104, torch.uint8, True, "l2"),
+    "l2_ragged": ((3, 1 << 19), (1 << 19) + 2, torch.int32, False, "l2"),
+    "n0": ((3, 0), 100, torch.int32, True, "l2"),
+}
+
+
+@pytest.mark.parametrize("case", list(AXIS1_CASES))
+def test_gather_axis1_forms_on_card(card, case):
+    """gather_axis1 on the grid gather's kernels at each of the probe's six
+    shapes (the L2 form) and at edge shapes of each form (index views 4
+    bytes off 16-byte alignment, columns no multiple of 4 or 16, uint8
+    rows in clusters of 4 read 8 times over, an empty row), indices
+    outside the row and at +-2^31:
+    its plan's form, one launch of its own a call and none counted in
+    gather_grid, equal to the plain version."""
+    from zxc_tpu_torch.ops import probes as P
+    (M, N), NI, dtype, offset, form = AXIS1_CASES[case]
+    rng = np.random.default_rng(len(case) + NI)
+    x = torch.from_numpy(rng.integers(0, 256, (M, N))).to(dtype).to(card)
+    ids = rng.integers(-5, N + 5, M * NI + 1)
+    ids[::89] = rng.integers(-2**31, 2**31 - 1, len(ids[::89]))
+    ids[1] = -2**31
+    ids[2] = 2**31 - 1
+    idx = torch.from_numpy(ids.astype(np.int32)).to(card)
+    idx = (idx[1:] if offset else idx[:M * NI]).view(M, NI)
+    assert idx.is_contiguous() and (idx.data_ptr() % 16 == 4) == offset
+    plan = P.gather_grid_plan(x, idx, idx)
+    assert plan.form == form
+    assert plan.vec == (form == "l2" and not offset
+                        and NI % (16 // x.element_size()) == 0)
+    before = (P.gather_axis1.launches, P.gather_grid.launches)
+    got = P.gather_axis1(x, idx)
+    torch.cuda.synchronize()
+    assert (P.gather_axis1.launches, P.gather_grid.launches) == (
+        before[0] + 1, before[1])
+    assert torch.equal(got, P.gather_axis1_reference(x, idx))
+
+
+@pytest.mark.parametrize("C", [127, 129, 256])
+@pytest.mark.parametrize("G", [1, 1023, 3000])
+def test_dma_b_warp_a_row_on_card(card, G, C):
+    """dma_b, a warp a row: rows of 127 and 129 words (4-byte copies) and
+    of 256 (16-byte copies, two a lane), G not a multiple of the warps a
+    CTA, indices outside the table and at +-2^31; one launch a call."""
+    from zxc_tpu_torch.ops import probes as P
+    rng = np.random.default_rng(G + C)
+    table = torch.from_numpy(rng.integers(-2**31, 2**31, (500, C)).astype(
+        np.int32)).to(card)
+    ids = rng.integers(-5, 505, G)
+    ids[::7] = rng.integers(-2**31, 2**31 - 1, len(ids[::7]))
+    idx = torch.from_numpy(ids.astype(np.int32)).to(card)
+    assert P.row_plan(G, C, "b").bulk == (C % 4 == 0)
+    before = P.dma_b.launches
+    got = P.dma_b(table, idx)
+    torch.cuda.synchronize()
+    assert P.dma_b.launches == before + 1
+    assert torch.equal(got, P.gather_rows_reference(table, idx))
+
+
+def test_dma_b_table_off_16_bytes_on_card(card):
+    """dma_b on a table view 4 bytes into its storage: the 4-byte copies,
+    equal to the plain version."""
+    from zxc_tpu_torch.ops import probes as P
+    rng = np.random.default_rng(3)
+    vals = rng.integers(-2**31, 2**31, 4096 * 128 + 1).astype(np.int32)
+    table = torch.from_numpy(vals).to(card)[1:].view(4096, 128)
+    assert table.is_contiguous() and table.data_ptr() % 16 == 4
+    idx = torch.from_numpy(rng.integers(-3, 4100, 1024).astype(
+        np.int32)).to(card)
+    before = P.dma_b.launches
+    got = P.dma_b(table, idx)
+    torch.cuda.synchronize()
+    assert P.dma_b.launches == before + 1
+    assert torch.equal(got, P.gather_rows_reference(table, idx))
 
 
 def _row_case(case: str, card):
@@ -1408,9 +1504,20 @@ def test_row_gather_refuses_a_bad_geometry_on_card(card):
         P._launch_rows(table, idx, out, form, plan)
         for bad in (dict(grid=plan.grid + 1), dict(smem=plan.smem + 16),
                     dict(stages=9), dict(piece=129)):
-            if form == "b" and "grid" not in bad:
-                continue
             with pytest.raises(RuntimeError, match="cudaError 1"):
                 P._launch_rows(table, idx, out, form, plan._replace(**bad))
+    # form b: 1-32 warps a CTA, no stage, 16-byte copies on aligned rows
+    plan = P.row_plan(64, 128, "b")
+    for bad in (dict(rows_per_cta=33, grid=2), dict(rows_per_cta=0),
+                dict(stages=1), dict(piece=64)):
+        with pytest.raises(RuntimeError, match="cudaError 1"):
+            P._launch_rows(table, idx, out, "b", plan._replace(**bad))
+    t127 = torch.zeros((64, 127), dtype=torch.int32, device=card)
+    o127 = torch.empty((64, 127), dtype=torch.int32, device=card)
+    plan = P.row_plan(64, 127, "b")
+    assert not plan.bulk
+    P._launch_rows(t127, idx, o127, "b", plan)
+    with pytest.raises(RuntimeError, match="cudaError 1"):
+        P._launch_rows(t127, idx, o127, "b", plan._replace(bulk=True))
     torch.cuda.synchronize()
-    assert torch.equal(out, table)
+    assert torch.equal(out, table) and torch.equal(o127, t127)

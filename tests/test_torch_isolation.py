@@ -35,7 +35,8 @@ def test_import_leaves_jax_and_zxc_tpu_out():
             "zxc_tpu_torch.ops.encode, zxc_tpu_torch.ops.encode_kernels, "
             "zxc_tpu_torch.codec.block_encode, zxc_tpu_torch.ops.expand, "
             "zxc_tpu_torch.ops.attic, zxc_tpu_torch.ops.attic_quad, "
-            "zxc_tpu_torch.ops.probes, zxc_tpu_torch.codec.seekable\n"
+            "zxc_tpu_torch.ops.probes, zxc_tpu_torch.codec.seekable, "
+            "zxc_tpu_torch.gather_ab\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'jaxlib')) or m == 'zxc_tpu' "
             "or m.startswith('zxc_tpu.'))\n"

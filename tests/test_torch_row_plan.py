@@ -1,9 +1,10 @@
 """The row gather's launch geometry (``probes.row_plan``), which the
 wrappers of ``dma_a`` / ``dma_b`` / ``dma_c`` pass to the card's kernels:
-every output row in exactly one CTA's run, every piece of a row within one
-stage (a multiple of 16 bytes where it is a bulk copy), the grid and the
-shared memory within what the kernels take, and rows that a bulk copy
-cannot move marked for the kernel's edge path. CPU only; exact."""
+every output row in exactly one CTA's run (form b: one warp), every piece
+of a row within one stage (a multiple of 16 bytes where it is a bulk
+copy), the grid and the shared memory within what the kernels take, and
+rows that a bulk copy cannot move marked for the kernel's edge path. CPU
+only; exact."""
 import pytest
 
 from zxc_tpu_torch.ops import probes as P
@@ -11,6 +12,7 @@ from zxc_tpu_torch.ops import probes as P
 MAX_GRID = 2**31 - 1          # CUDA's grid.x
 MAX_SMEM = 48 << 10           # csrc/gather.cu kMaxSmem
 MAX_ROWS, MAX_STAGES = 1024, 8
+MAX_WARPS = 32                # kMaxRowWarps: form b's rows a CTA
 
 
 def runs(plan) -> list[range]:
@@ -77,11 +79,21 @@ def test_row_plan_marks_unaligned_rows_for_the_edge_path(C, form):
 
 
 @pytest.mark.parametrize("G", [0, 1, 1024, 3000])
-def test_row_plan_of_form_b_is_one_cta_a_row(G):
+def test_row_plan_of_form_b_is_a_warp_a_row(G):
+    """Form b: ``ROWS_PER_CTA["b"]`` warps a CTA (at most 32), a warp a
+    row, every output row in exactly one warp; the whole row one piece,
+    no stage, no shared memory; 16-byte copies only where the rows are
+    16-byte aligned."""
     plan = P.row_plan(G, 128, "b")
-    assert (plan.grid, plan.rows_per_cta, plan.stages, plan.bulk,
-            plan.smem) == (G, 1, 0, False, 0)
-    assert [i for r in runs(plan) for i in r] == list(range(G))
+    k = P.ROWS_PER_CTA["b"]
+    assert 1 <= k <= MAX_WARPS
+    assert (plan.grid, plan.rows_per_cta, plan.piece, plan.stages,
+            plan.bulk, plan.smem) == (-(-G // k), k, 128, 0, True, 0)
+    cuts = runs(plan)
+    assert [i for r in cuts for i in r] == list(range(G))
+    assert all(1 <= len(r) <= k for r in cuts)
+    assert not P.row_plan(G, 128, "b", aligned=False).bulk
+    assert not P.row_plan(G, 127, "b").bulk
 
 
 def test_row_plan_refuses_other_forms():

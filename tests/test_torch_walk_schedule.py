@@ -287,34 +287,41 @@ def test_walk_plan(Pn):
 
 # -- the grid gather -----------------------------------------------------------
 
-def thread_columns(plan, threads: int) -> np.ndarray:
+def thread_columns(plan, threads: int, cols: int = 16) -> np.ndarray:
     """Each pass's columns as the kernel's threads take them, relative to
-    the pass's first column, (threads, 16): the L2 form's vector pass
-    (int32: four groups of 4 strided by the CTA's width; uint8: 16
-    adjacent), else 16 strided by the CTA's width."""
-    t = np.arange(threads)[:, None]
-    if plan.vec and plan.esize == 4:
-        q = np.arange(4)[None, :, None]
-        return ((q * threads + t[:, :, None]) * 4 + np.arange(4)).reshape(
-            threads, 16)
+    the pass's first column, (threads, cols): the L2 form's vector pass
+    (int32: cols / 4 groups of 4 adjacent, uint8: cols / 16 groups of 16,
+    the groups strided by the CTA's width), else cols strided by the
+    CTA's width."""
+    t = np.arange(threads)[:, None, None]
     if plan.vec:
-        return t * 16 + np.arange(16)
-    return np.arange(16)[None, :] * threads + t
+        run = 4 if plan.esize == 4 else 16
+        g = np.arange(cols // run)[None, :, None]
+        return ((g * threads + t) * run + np.arange(run)).reshape(
+            threads, cols)
+    return np.arange(cols)[None, :] * threads + t[:, :, 0]
 
 
 def grid_model(x: np.ndarray, idx: np.ndarray, plan) -> np.ndarray:
     """The grid gather by ``plan``'s schedule, checking that every output
     is written exactly once: in the cluster form by the CTA whose slice
     holds its element (rank 0 for an index outside the row), each CTA
-    reading only its own slice."""
+    reading only its own slice; in the L2 form by the CTA of its columns,
+    in passes of its threads."""
     M, N = x.shape
     NI = idx.shape[1]
     out = np.zeros(idx.shape, x.dtype)
     written = np.zeros(idx.shape, np.int64)
     cluster = plan.form == "cluster"
-    threads = P.GRID_THREADS if cluster else P.GRID_L2_THREADS
-    cols = thread_columns(plan, threads).reshape(-1)
-    assert sorted(cols.tolist()) == list(range(16 * threads))
+    threads = plan.threads
+    width = P.GRID_COLS if cluster else P.GRID_L2_COLS
+    if cluster:
+        assert threads == P.GRID_THREADS
+    else:
+        assert threads in P.GRID_L2_THREADS
+        assert plan.cols % (threads * width) == 0
+    cols = thread_columns(plan, threads, width).reshape(-1)
+    assert sorted(cols.tolist()) == list(range(width * threads))
     if plan.vec:     # 16-byte loads and stores start on 16 bytes
         assert not cluster and NI % (16 // plan.esize) == 0
     for i in range(M):
@@ -329,7 +336,7 @@ def grid_model(x: np.ndarray, idx: np.ndarray, plan) -> np.ndarray:
             j0 = g * plan.cols
             j1 = min(j0 + plan.cols, NI)
             for r, lo, part in ranks:
-                for cb in range(j0, j1, 16 * threads):
+                for cb in range(j0, j1, width * threads):
                     c = cb + cols
                     c = c[c < j1]
                     k = idx[i, c].astype(np.int64)
@@ -343,12 +350,15 @@ def grid_model(x: np.ndarray, idx: np.ndarray, plan) -> np.ndarray:
 
 
 GRID_CASES = [  # M, N, NI, esize, aligned, sms, form, K
-    (8, 65536, 1 << 15, 4, True, 132, "cluster", 2),
-    (8, 65536, 1 << 15, 4, False, 132, "cluster", 2),
-    (3, 1000, 4096, 4, True, 132, "cluster", 1),
-    (4, 65536, 8192, 1, True, 132, "cluster", 1),
-    (2, 600_000, 8192, 1, True, 132, "cluster", 4),
-    (2, 7000, 4104, 1, True, 132, "cluster", 1),
+    (8, 65536, 1 << 19, 4, True, 132, "cluster", 2),
+    (8, 65536, 1 << 19, 4, False, 132, "cluster", 2),
+    (3, 1000, 8192, 4, True, 132, "cluster", 1),
+    (4, 65536, 1 << 19, 1, True, 132, "cluster", 1),
+    (2, 420_000, 3_360_000, 1, True, 132, "cluster", 4),
+    (2, 7000, 56_008, 1, True, 132, "cluster", 1),
+    (8, 65536, 1 << 15, 4, True, 132, "l2", 1),
+    (3, 1000, 3000, 4, True, 132, "l2", 1),
+    (200, 10_000, 20_000, 4, True, 132, "l2", 1),
     (2, 1 << 19, 4096, 4, True, 16, "l2", 1),
     (3, 1 << 19, 4100, 4, False, 132, "l2", 1),
     (2, 2_000_000, 4104, 1, True, 132, "l2", 1),
@@ -368,9 +378,13 @@ def test_grid_plan_covers_rows_and_columns(M, N, NI, esize, aligned, sms,
         assert plan.clusters * plan.cols >= NI and not plan.vec
         assert M * plan.K * plan.clusters <= max(sms, M * plan.K)
     else:
-        assert plan.cols == P.GRID_L2_THREADS * P.GRID_COLS
-        assert plan.clusters * plan.cols >= NI and plan.smem == 0
+        assert plan.threads in P.GRID_L2_THREADS
+        assert plan.cols % (plan.threads * P.GRID_L2_COLS) == 0
+        assert plan.clusters == max(1, -(-NI // plan.cols))
+        assert M * plan.clusters <= max(sms, M) and plan.smem == 0
         assert plan.vec == (aligned and NI % (16 // esize) == 0)
+        assert (NI < P.GRID_CLUSTER_READS * N or N == 0
+                or N * esize > P.GRID_MAX_CLUSTER * P.GRID_MAX_SLICE)
     rng = np.random.default_rng(M * N + NI)
     dt = np.int32 if esize == 4 else np.uint8
     x = rng.integers(0, 256, (M, N)).astype(dt)
@@ -386,13 +400,14 @@ def test_grid_plan_covers_rows_and_columns(M, N, NI, esize, aligned, sms,
 def test_grid_plan_of_the_probe_shape():
     """x (8, 64K) int32, idx (8, 512K): clusters of 2 CTAs of 128 KiB, 8
     clusters a row (128 CTAs on 132 SMs), 64K columns a cluster, whatever
-    the index view's alignment; a row of 4 MiB takes the L2 form."""
+    the index view's alignment; x (2, 1M) with a square index takes the
+    L2 form, 64 CTAs of 512 threads a row, 2 passes each."""
     want = P.GridPlan(8, 1 << 16, 1 << 19, 4, "cluster", 2, 8, 1 << 15,
-                      1 << 16, False, 128 << 10)
+                      1 << 16, False, 128 << 10, 1024)
     assert P.grid_plan(8, 1 << 16, 1 << 19, 4) == want
     assert P.grid_plan(8, 1 << 16, 1 << 19, 4, aligned=False) == want
     assert P.grid_plan(2, 1 << 20, 1 << 20, 4) == P.GridPlan(
-        2, 1 << 20, 1 << 20, 4, "l2", 1, 256, 0, 4096, True, 0)
+        2, 1 << 20, 1 << 20, 4, "l2", 1, 64, 0, 16384, True, 0, 512)
 
 
 @pytest.mark.parametrize("M,N,tile,dtype,sms", [
@@ -409,13 +424,14 @@ def test_grid_model_equals_jax_grid_gather(monkeypatch, M, N, tile, dtype,
     rng = np.random.default_rng(N)
     x = rng.integers(0, 256 if dtype == np.uint8 else 100,
                      (M, N)).astype(dtype)
-    idx = rng.integers(0, N, (M, 4 * tile)).astype(np.int32)
+    NI = -(-P.GRID_CLUSTER_READS * N // tile) * tile   # the cluster form
+    idx = rng.integers(0, N, (M, NI)).astype(np.int32)
     want = np.asarray(gather_probe.pallas_gather_grid(
         jnp.asarray(x), jnp.asarray(idx), tile))
-    plan = P.grid_plan(M, N, 4 * tile, x.itemsize, True, sms)
+    plan = P.grid_plan(M, N, NI, x.itemsize, True, sms)
     assert plan.form == "cluster"
     assert np.array_equal(grid_model(x, idx, plan), want)
     for vec in (True, False):     # the L2 form's passes on the same input
-        l2 = P.GridPlan(M, N, 4 * tile, x.itemsize, "l2", 1,
-                        -(-4 * tile // 4096), 0, 4096, vec, 0)
-        assert np.array_equal(grid_model(x, idx, l2), want)
+        for threads, passes in ((256, 1), (64, 3)):
+            l2 = P.l2_plan(M, N, NI, x.itemsize, vec, threads, passes)
+            assert np.array_equal(grid_model(x, idx, l2), want)

@@ -95,7 +95,7 @@ _DSMEM = """  cluster.sync();
   const long long j1 = min(min(j0 + (rank + 1) * sub, j0 + cols), NI);
   for (long long cb = j0 + rank * sub; cb < j1;
        cb += (long long)blockDim.x * kGridCols)
-    gather_pass_scalar(idx + i * NI, out + i * NI, cb, j1, row);
+    gather_pass_scalar<kGridCols>(idx + i * NI, out + i * NI, cb, j1, row);
   cluster.sync();
 """
 ABLATIONS = {
@@ -210,7 +210,8 @@ def main() -> None:
             x.data_ptr(), idx.data_ptr(), out.data_ptr(), plan.M, plan.N,
             plan.NI, plan.esize, int(plan.form == "cluster"), plan.K,
             plan.clusters, plan.slice, plan.cols, int(plan.vec), plan.smem,
-            stream()) == 0, "an ablated grid gather did not launch")
+            plan.threads, stream()) == 0,
+            "an ablated grid gather did not launch")
 
     def ablations(prefix, call):
         """Each ablation of ``prefix`` timed between two runs of
@@ -262,8 +263,7 @@ def main() -> None:
     if args.ablate:
         plan = P.gather_grid_plan(x, idx, torch.empty_like(idx))
         ablations("grid", lambda L: grid_with(L, x, idx, plan))
-        l2 = P.GridPlan(M, N, NI, 4, "l2", 1, -(-NI // 4096), 0, 4096, True,
-                        0)
+        l2 = P.l2_plan(M, N, NI, 4, True, 256, 1)
         from zxc_tpu_torch.ops import _build
         print(f"  the L2 form at the probe's shape: "
               f"{S.device_ms(lambda: grid_with(_build.gather_kernels(), x, idx, l2)):.4f}"

@@ -15,19 +15,25 @@
 // An index outside the table reads 0 (the JAX kernels leave it undefined).
 //
 // What bounds the row-wise gathers on the card: bytes. Each output element
-// is one dependent load (index, then table), no arithmetic; the tables of
-// the probes' shapes (at most 2 MB) stay in the 50 MB L2, so the floor is
+// is one dependent load (index, then table), no arithmetic. The floor is
 // the index read and the output write at 3.35 TB/s, plus the table's
-// distinct elements read once. Design: gather_axis1 is one thread an
-// element, coalesced along the index row, CTAs over (column tile, row).
-// Form b of the row gather is one CTA a row, all at once.
+// distinct elements read once. But a random 4-byte table read costs the L2
+// a 32-byte sector, so reading the table from L2 moves 8x the output's
+// bytes. Both probes' functions (gather_axis1 and the grid form's
+// gather_grid, whose `tile` is only checked) run the same two kernels in
+// the geometry of probes.grid_plan, whose rule was set by measurement
+// (python3 -m zxc_tpu_torch.gather_ab, NVIDIA H100 80GB HBM3 at 700 W):
+// the cluster form where a row fits a cluster and the index reads each row
+// element 4 times or more (x (8, 64K) with idx (8, 256K): 0.0121 ms
+// against the L2 form's best 0.0123; the grid probe's idx (8, 512K):
+// 0.0195 against 0.0214), else the L2 form (idx (8, 128K): 0.0085 against
+// the cluster form's 0.0088; every shape of gather_axis1's probe, a square
+// index: 0.0027 to 0.0369 ms, and 0.0049 to 0.0270 for the cluster form
+// where a row fits a cluster).
 //
-// The grid form (gather_grid) follows the card, not the TPU grid's steps;
-// its `tile` is only checked. A random 4-byte table read costs the L2 a
-// 32-byte sector, so reading the table from L2 moves 8x the output's bytes.
-// Its cluster form holds the row in shared memory instead: a cluster of K
-// <= 8 CTAs (1024 threads each) is assigned one row i and a run of its
-// index columns; each CTA fills its contiguous slice of the row (`slice`
+// The cluster form holds the row in shared memory: a cluster of K <= 8
+// CTAs (1024 threads each) is assigned one row i and a run of its index
+// columns; each CTA fills its contiguous slice of the row (`slice`
 // elements, at most 200 KiB) by cp.async.bulk copies of 16 KiB, all in
 // flight on one mbarrier, where the slice's start is 16-byte aligned
 // (plain loads for the rest). Then every CTA of the cluster reads all the
@@ -38,13 +44,35 @@
 // from HBM and the others find it in L2. Reading the other CTAs' slices
 // through distributed shared memory instead (mapa, ld.shared::cluster)
 // was measured: random 4-byte remote reads took half the kernel's time
-// (walk_gather_ab.py --ablate, grid_dsmem). Enough clusters a row fill the
-// card's SMs (probes.grid_plan). Its L2 form, for rows too large for a
-// cluster, takes CTAs of 256 threads over (4096-column chunk, row); each
-// thread issues its 16 index loads and 16 table loads before its stores,
-// with 16-byte index loads and output stores where the rows are aligned.
-// Index and output streams of the L2 form are loaded and stored
-// evict-first so the table keeps its place in L2.
+// (walk_gather_ab.py --ablate, grid_dsmem); a cluster of 16 CTAs holding a
+// 2 MiB row took 0.21 ms, every CTA reading all its row's index columns.
+// Enough clusters a row fill the card's SMs (probes.grid_plan).
+//
+// The L2 form takes about one CTA an SM (one a row where M exceeds the
+// SMs), each a contiguous run of `cols` index columns of one row, in
+// passes of 16 columns a thread (the widest CTA of 64-512 threads whose
+// pass fits the run): a CTA's table reads stay within its row, so rows of
+// up to a few hundred KiB are served from the SM's L1 (x (64, 64K): 0.0213
+// ms at 2 CTAs a row against 0.0372 at 16). Each thread issues its 16
+// index loads and 16 table loads before its stores, with 16-byte index
+// loads and output stores where the rows are aligned; index and output
+// streams are loaded and stored evict-first so the table keeps its place
+// in L2. Rows of 2 MiB (x (8, 512K)) miss L1: the random 32-byte sectors
+// from L2 bound the kernel (0.0369 ms; the same kernel on indices within
+// each row's first 256 KiB 0.0221, on idx[i, j] = j 0.0137), and an L2
+// evict-last policy on the table reads or a bulk L2 prefetch of each
+// CTA's share of its row moved it by under 0.3%, 32 columns a thread made
+// it 3% slower.
+//
+// Form b of the row gather is a warp a row, probes.ROWS_PER_CTA["b"] warps
+// a CTA: the warp loads its row's index from one address, then each lane
+// copies 16 bytes for every 512 bytes of the row (a row of the probe's 128
+// words is one load and one store a lane) where the table and the output
+// start on 16 bytes and C % 4 == 0, else 4 bytes a lane; a row outside the
+// table is written 0. At the probe's shape (1,024 rows of 512 B) 4 to 16
+// warps a CTA read 0.0024 ms, 1 warp 0.0028 and 32 warps 0.0027; the same
+// grid with the index loads and no copy 0.0021 (gather_ab): the launch and
+// one dependent load round trip, not the bytes.
 //
 // Forms a and c are schedules of the card's DMA engine, the bulk-copy unit
 // of the Tensor Memory Accelerator, over a grid of CTAs of 128 threads.
@@ -76,34 +104,39 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr long long kAxisTile = 4096;   // index columns a CTA of gather_axis1
+enum RowForm { kRowAtATime = 0, kIndirect = 1, kPipelined = 2 };
 
-// grid (ceil(NI / 4096), M)
-template <typename T>
-__global__ void __launch_bounds__(kThreads) gather_axis1_kernel(
-    const T* __restrict__ x, const int32_t* __restrict__ idx,
-    T* __restrict__ out, int N, long long NI) {
-  const long long c0 = (long long)blockIdx.x * kAxisTile;
-  const long long c1 = min(c0 + kAxisTile, NI);
-  const long long r = blockIdx.y;
-  const T* xr = x + r * N;
-  for (long long j = c0 + threadIdx.x; j < c1; j += blockDim.x) {
-    const int32_t k = idx[r * NI + j];
-    out[r * NI + j] = (k >= 0 && k < N) ? xr[k] : T(0);
+constexpr int kMaxRowWarps = 32;        // rows (warps) a CTA of form b
+
+// form b: warp w of CTA k copies output row k * warps + w, 16 bytes a lane
+// where kVec (table and out on 16 bytes, C % 4 == 0), else 4 bytes a lane
+template <bool kVec>
+__device__ __forceinline__ void copy_row(const int32_t* __restrict__ src,
+                                         int32_t* __restrict__ dst, int C,
+                                         bool ok, int lane) {
+  if (kVec) {
+    const int4* s = reinterpret_cast<const int4*>(src);
+    int4* d = reinterpret_cast<int4*>(dst);
+#pragma unroll 4
+    for (int c = lane; c < C / 4; c += 32)
+      d[c] = ok ? __ldg(s + c) : make_int4(0, 0, 0, 0);
+  } else {
+#pragma unroll 4
+    for (int c = lane; c < C; c += 32) dst[c] = ok ? __ldg(src + c) : 0;
   }
 }
 
-enum RowForm { kRowAtATime = 0, kIndirect = 1, kPipelined = 2 };
-
-// form b: one CTA a row
-__global__ void __launch_bounds__(kThreads) gather_rows_indirect_kernel(
+template <bool kVec>
+__global__ void __launch_bounds__(kMaxRowWarps * 32) gather_rows_warp_kernel(
     const int32_t* __restrict__ table, int R, int C,
-    const int32_t* __restrict__ idx, int32_t* __restrict__ out) {
-  const int32_t r = idx[blockIdx.x];
+    const int32_t* __restrict__ idx, int G, int32_t* __restrict__ out) {
+  const long long g =
+      (long long)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  if (g >= G) return;
+  const int32_t r = __ldg(idx + g);     // one address for the whole warp
   const bool ok = r >= 0 && r < R;
-  for (int c = threadIdx.x; c < C; c += blockDim.x)
-    out[(long long)blockIdx.x * C + c] = ok ? table[(long long)r * C + c] : 0;
+  copy_row<kVec>(table + (ok ? (long long)r * C : 0), out + g * C, C, ok,
+                 threadIdx.x & 31);
 }
 
 constexpr int kRowThreads = 128;        // a CTA of forms a and c
@@ -240,11 +273,11 @@ __global__ void __launch_bounds__(kRowThreads) gather_rows_bulk_kernel(
 namespace cg = cooperative_groups;
 
 constexpr int kGridThreads = 1024;      // a CTA of the cluster form
-constexpr int kGridL2Threads = 256;     // a CTA of the L2 form
 constexpr int kGridCols = 16;           // index columns a thread takes at once
 constexpr int kMaxCluster = 8;          // the portable cluster size
 constexpr int kMaxSlice = 200 << 10;    // bytes of its row a CTA may hold
 constexpr uint32_t kFillPiece = 16 << 10;   // bytes a bulk copy of the fill
+constexpr int kGridL2Cols = 16;         // columns a thread of the L2 form
 
 // The cluster form's passes over index columns [j0, j1) of a row: 16
 // columns a thread at a time, strided by the CTA's width (coalesced), all
@@ -287,70 +320,76 @@ struct GlobalTableRow {
   }
 };
 
-// A thread's 16 columns of the CTA's pass starting at column cb, of a row
-// whose index and output rows are 16-byte aligned and whose run ends at j1
-// (a multiple of 16 / sizeof(T)): four 16-byte index loads, the 16 table
-// reads, then 16-byte stores. int32: four groups of 4 columns strided by
-// the CTA's width, so each load and store is coalesced; uint8: 16
-// adjacent columns, one 16-byte store.
-template <typename T, typename Row>
+// A thread's kCols columns of the CTA's pass starting at column cb, of a
+// row whose index and output rows are 16-byte aligned and whose run ends
+// at j1 (a multiple of 16 / sizeof(T)): 16-byte index loads, the table
+// reads, then 16-byte stores. int32: kCols / 4 groups of 4 adjacent
+// columns, uint8: kCols / 16 groups of 16, the groups strided by the
+// CTA's width, so each load and store is coalesced.
+template <int kCols, typename T, typename Row>
 __device__ __forceinline__ void gather_pass_vec(
     const int32_t* __restrict__ ir, T* __restrict__ orow, long long cb,
     long long j1, const Row& row) {
+  constexpr int kRun = sizeof(T) == 4 ? 4 : 16;   // columns of one store
+  constexpr int kGroups = kCols / kRun;
   const long long t = threadIdx.x, nt = blockDim.x;
-  long long c[4];
-  int4 iv[4];
+  long long c[kGroups];
+  int4 iv[kCols / 4];
 #pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    c[q] = sizeof(T) == 4 ? cb + (q * nt + t) * 4 : cb + t * 16 + 4 * q;
-    iv[q] = c[q] < j1 ? __ldcs(reinterpret_cast<const int4*>(ir + c[q]))
-                      : make_int4(-1, -1, -1, -1);
+  for (int g = 0; g < kGroups; ++g) c[g] = cb + (g * nt + t) * kRun;
+#pragma unroll
+  for (int q = 0; q < kCols / 4; ++q) {
+    const long long at = c[q / (kRun / 4)] + 4 * (q % (kRun / 4));
+    iv[q] = at < j1 ? __ldcs(reinterpret_cast<const int4*>(ir + at))
+                    : make_int4(-1, -1, -1, -1);
   }
-  T v[16];
+  T v[kCols];
 #pragma unroll
-  for (int q = 0; q < 4; ++q) {
+  for (int q = 0; q < kCols / 4; ++q) {
     v[4 * q] = row(iv[q].x);
     v[4 * q + 1] = row(iv[q].y);
     v[4 * q + 2] = row(iv[q].z);
     v[4 * q + 3] = row(iv[q].w);
   }
-  if constexpr (sizeof(T) == 4) {
 #pragma unroll
-    for (int q = 0; q < 4; ++q)
-      if (c[q] < j1)
-        __stcs(reinterpret_cast<int4*>(orow + c[q]),
-               make_int4(v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]));
-  } else {
-    uint32_t w[4];
+  for (int g = 0; g < kGroups; ++g) {
+    if (c[g] >= j1) continue;
+    if constexpr (sizeof(T) == 4) {
+      __stcs(reinterpret_cast<int4*>(orow + c[g]),
+             make_int4(v[4 * g], v[4 * g + 1], v[4 * g + 2], v[4 * g + 3]));
+    } else {
+      uint32_t w[4];
 #pragma unroll
-    for (int q = 0; q < 4; ++q)
-      w[q] = (uint32_t)v[4 * q] | (uint32_t)v[4 * q + 1] << 8 |
-             (uint32_t)v[4 * q + 2] << 16 | (uint32_t)v[4 * q + 3] << 24;
-    if (c[0] < j1)
-      __stcs(reinterpret_cast<uint4*>(orow + c[0]),
+      for (int q = 0; q < 4; ++q) {
+        const T* b = v + 16 * g + 4 * q;
+        w[q] = (uint32_t)b[0] | (uint32_t)b[1] << 8 | (uint32_t)b[2] << 16 |
+               (uint32_t)b[3] << 24;
+      }
+      __stcs(reinterpret_cast<uint4*>(orow + c[g]),
              make_uint4(w[0], w[1], w[2], w[3]));
+    }
   }
 }
 
-// the same for any alignment: 16 columns strided by the CTA's width
-template <typename T, typename Row>
+// the same for any alignment: kCols columns strided by the CTA's width
+template <int kCols, typename T, typename Row>
 __device__ __forceinline__ void gather_pass_scalar(
     const int32_t* __restrict__ ir, T* __restrict__ orow, long long cb,
     long long j1, const Row& row) {
   const long long t = threadIdx.x, nt = blockDim.x;
-  int32_t k[kGridCols];
+  int32_t k[kCols];
 #pragma unroll
-  for (int q = 0; q < kGridCols; ++q) {
+  for (int q = 0; q < kCols; ++q) {
     const long long c = cb + q * nt + t;
     k[q] = c < j1 ? __ldcs(ir + c) : -1;
   }
-  T v[kGridCols];
+  T v[kCols];
 #pragma unroll
-  for (int q = 0; q < kGridCols; ++q) v[q] = row(k[q]);
+  for (int q = 0; q < kCols; ++q) v[q] = row(k[q]);
 #pragma unroll
-  for (int q = 0; q < kGridCols; ++q) {
+  for (int q = 0; q < kCols; ++q) {
     const long long c = cb + q * nt + t;
-    if (c < j1) orow[c] = v[q];
+    if (c < j1) __stcs(orow + c, v[q]);
   }
 }
 
@@ -403,35 +442,53 @@ __global__ void __launch_bounds__(kGridThreads) gather_grid_cluster_kernel(
                (int)lo, n, N, rank == 0);
 }
 
-// grid (ceil(NI / 4096), M)
-template <typename T, bool kVec>
-__global__ void __launch_bounds__(kGridL2Threads) gather_grid_l2_kernel(
+// grid (ceil(NI / cols), M): CTA (c, i) takes index columns [c * cols,
+// (c + 1) * cols) of row i, in passes of kThreads * kGridL2Cols columns
+template <int kThreads, typename T, bool kVec>
+__global__ void __launch_bounds__(kThreads) gather_grid_l2_kernel(
     const T* __restrict__ x, const int32_t* __restrict__ idx,
-    T* __restrict__ out, int N, long long NI) {
+    T* __restrict__ out, int N, long long NI, long long cols) {
   const long long i = blockIdx.y;
-  const long long cb = (long long)blockIdx.x * kGridL2Threads * kGridCols;
-  const long long j1 = min(cb + kGridL2Threads * kGridCols, NI);
+  const long long c0 = (long long)blockIdx.x * cols;
+  const long long j1 = min(c0 + cols, NI);
   const GlobalTableRow<T> row{x + i * N, N};
-  if (kVec)
-    gather_pass_vec(idx + i * NI, out + i * NI, cb, j1, row);
+  for (long long cb = c0; cb < j1; cb += kThreads * kGridL2Cols) {
+    if (kVec)
+      gather_pass_vec<kGridL2Cols>(idx + i * NI, out + i * NI, cb, j1, row);
+    else
+      gather_pass_scalar<kGridL2Cols>(idx + i * NI, out + i * NI, cb, j1,
+                                      row);
+  }
+}
+
+template <int kThreads, typename T>
+void launch_l2(dim3 grid, const T* x, const int32_t* idx, T* out, int N,
+               long long NI, long long cols, int vec, cudaStream_t s) {
+  if (vec)
+    gather_grid_l2_kernel<kThreads, T, true><<<grid, kThreads, 0, s>>>(
+        x, idx, out, N, NI, cols);
   else
-    gather_pass_scalar(idx + i * NI, out + i * NI, cb, j1, row);
+    gather_grid_l2_kernel<kThreads, T, false><<<grid, kThreads, 0, s>>>(
+        x, idx, out, N, NI, cols);
 }
 
 template <typename T>
 int launch_grid(const void* x, const int32_t* idx, void* out, int M, int N,
                 long long NI, int form, int K, int clusters, int slice,
-                long long cols, int vec, int smem, cudaStream_t s) {
+                long long cols, int vec, int smem, int threads,
+                cudaStream_t s) {
   const T* xt = static_cast<const T*>(x);
   T* ot = static_cast<T*>(out);
   if (form == 0) {
     const dim3 grid((unsigned)clusters, (unsigned)M);
-    if (vec)
-      gather_grid_l2_kernel<T, true><<<grid, kGridL2Threads, 0, s>>>(
-          xt, idx, ot, N, NI);
+    if (threads == 64)
+      launch_l2<64>(grid, xt, idx, ot, N, NI, cols, vec, s);
+    else if (threads == 128)
+      launch_l2<128>(grid, xt, idx, ot, N, NI, cols, vec, s);
+    else if (threads == 256)
+      launch_l2<256>(grid, xt, idx, ot, N, NI, cols, vec, s);
     else
-      gather_grid_l2_kernel<T, false><<<grid, kGridL2Threads, 0, s>>>(
-          xt, idx, ot, N, NI);
+      launch_l2<512>(grid, xt, idx, ot, N, NI, cols, vec, s);
     return (int)cudaGetLastError();
   }
   cudaError_t e = cudaFuncSetAttribute(
@@ -462,37 +519,19 @@ extern "C" {
 
 // Returns a cudaError_t (0 = launched) and launches on `stream`. Checked by
 // the Python wrapper: x (M, N) of `esize` bytes (1 or 4), idx and out
-// (M, NI). CTAs over (4096-column tile, row).
-int zxc_gather_axis1(const void* x, const int32_t* idx, void* out, int M,
-                     int N, long long NI, int esize, void* stream) {
-  if (M == 0 || NI == 0) return 0;
-  if (M < 0 || N < 0 || NI < 0 || (esize != 1 && esize != 4))
-    return (int)cudaErrorInvalidValue;
-  const dim3 grid((unsigned)((NI + kAxisTile - 1) / kAxisTile), M);
-  if (grid.y > 65535) return (int)cudaErrorInvalidValue;
-  if (esize == 1)
-    gather_axis1_kernel<uint8_t><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-        static_cast<const uint8_t*>(x), idx, static_cast<uint8_t*>(out), N,
-        NI);
-  else
-    gather_axis1_kernel<int32_t><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-        static_cast<const int32_t*>(x), idx, static_cast<int32_t*>(out), N,
-        NI);
-  return (int)cudaGetLastError();
-}
-
-// Returns a cudaError_t (0 = launched) and launches on `stream`. Checked by
-// the Python wrapper: x (M, N) of `esize` bytes (1 or 4), idx and out
 // (M, NI), in the geometry of probes.grid_plan: `form` 1 the cluster form
-// (clusters of K CTAs, `clusters` a row, each CTA `slice` elements of its
-// row in `smem` bytes of shared memory, each cluster `cols` index columns;
-// vec 0), 0 the L2 form (K 1, `clusters` CTAs of 4096 columns a row, slice
-// and smem 0; `vec` 1 for 16-byte index loads and output stores). A geometry the kernels cannot run gives
+// (clusters of K CTAs of `threads` = 1024, `clusters` a row, each CTA
+// `slice` elements of its row in `smem` bytes of shared memory, each
+// cluster `cols` index columns; vec 0), 0 the L2 form (K 1, `clusters`
+// CTAs of `threads` (64, 128, 256 or 512) a row, `cols` index columns a
+// CTA, a multiple of threads * kGridL2Cols; slice and smem 0; `vec` 1 for
+// 16-byte index loads and output stores). gather_axis1 and gather_grid
+// both launch here. A geometry the kernels cannot run gives
 // cudaErrorInvalidValue.
 int zxc_gather_grid(const void* x, const int32_t* idx, void* out, int M,
                     int N, long long NI, int esize, int form, int K,
                     int clusters, int slice, long long cols, int vec,
-                    int smem, void* stream) {
+                    int smem, int threads, void* stream) {
   const int bad = (int)cudaErrorInvalidValue;
   if (M < 0 || N < 0 || NI < 0 || (esize != 1 && esize != 4) ||
       (form != 0 && form != 1) || (vec != 0 && vec != 1))
@@ -504,7 +543,9 @@ int zxc_gather_grid(const void* x, const int32_t* idx, void* out, int M,
     return bad;
   if (form == 0) {
     if (K != 1 || slice != 0 || smem != 0 ||
-        cols != (long long)kGridL2Threads * kGridCols ||
+        (threads != 64 && threads != 128 && threads != 256 &&
+         threads != 512) ||
+        cols % ((long long)threads * kGridL2Cols) ||
         clusters != (NI + cols - 1) / cols)
       return bad;
   } else if (vec || K < 1 || K > kMaxCluster || (K & (K - 1)) ||
@@ -512,15 +553,16 @@ int zxc_gather_grid(const void* x, const int32_t* idx, void* out, int M,
              (long long)slice * esize > kMaxSlice ||
              (long long)K * slice < N || smem != slice * esize ||
              (long long)clusters * cols < NI ||
-             (long long)K * clusters > 0x7fffffffll) {
+             (long long)K * clusters > 0x7fffffffll ||
+             threads != kGridThreads) {
     return bad;
   }
   cudaStream_t s = (cudaStream_t)stream;
   return esize == 1
       ? launch_grid<uint8_t>(x, idx, out, M, N, NI, form, K, clusters, slice,
-                             cols, vec, smem, s)
+                             cols, vec, smem, threads, s)
       : launch_grid<int32_t>(x, idx, out, M, N, NI, form, K, clusters, slice,
-                             cols, vec, smem, s);
+                             cols, vec, smem, threads, s);
 }
 
 // Returns a cudaError_t (0 = launched) and launches on `stream`. Checked by
@@ -528,8 +570,10 @@ int zxc_gather_grid(const void* x, const int32_t* idx, void* out, int M,
 // form 0 (a), 1 (b) or 2 (c); the geometry of probes.row_plan: `grid` CTAs
 // of `rows_per_cta` rows, pieces of `piece` words, `stages` stages, `bulk`
 // 1 for bulk copies (0: the edge path) and `smem` bytes of dynamic shared
-// memory. Form b takes grid G and one row a CTA. A geometry the kernels
-// cannot run gives cudaErrorInvalidValue.
+// memory. Form b takes `rows_per_cta` warps a CTA (at most 32), a warp a
+// row, piece C, no stage and no shared memory; its `bulk` 1 copies 16
+// bytes a lane. A geometry the kernels cannot run gives
+// cudaErrorInvalidValue.
 int zxc_gather_rows(const int32_t* table, int R, int C, const int32_t* idx,
                     int G, int32_t* out, int form, int grid, int rows_per_cta,
                     int piece, int stages, int bulk, int smem, void* stream) {
@@ -538,21 +582,29 @@ int zxc_gather_rows(const int32_t* table, int R, int C, const int32_t* idx,
     return bad;
   if (G == 0 || C == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
+  const int max_rows = form == kIndirect ? kMaxRowWarps : kMaxRowsPerCta;
+  if (rows_per_cta < 1 || rows_per_cta > max_rows ||
+      grid != (G + (long long)rows_per_cta - 1) / rows_per_cta ||
+      bulk < 0 || bulk > 1)
+    return bad;
+  const bool misaligned =
+      (uintptr_t)table % 16 || (uintptr_t)out % 16 || C % 4;
   if (form == kIndirect) {
-    if (grid != G || rows_per_cta != 1) return bad;
-    gather_rows_indirect_kernel<<<G, kThreads, 0, s>>>(table, R, C, idx, out);
+    if (piece != C || stages != 0 || smem != 0 || (bulk && misaligned))
+      return bad;
+    if (bulk)
+      gather_rows_warp_kernel<true><<<grid, 32 * rows_per_cta, 0, s>>>(
+          table, R, C, idx, G, out);
+    else
+      gather_rows_warp_kernel<false><<<grid, 32 * rows_per_cta, 0, s>>>(
+          table, R, C, idx, G, out);
     return (int)cudaGetLastError();
   }
-  if (rows_per_cta < 1 || rows_per_cta > kMaxRowsPerCta ||
-      grid != (G + (long long)rows_per_cta - 1) / rows_per_cta)
-    return bad;
   if (form == kRowAtATime ? stages != 1
                           : (stages < 2 || stages > kMaxStages))
     return bad;
-  if (piece < 1 || piece > C || bulk < 0 || bulk > 1) return bad;
-  if (bulk && ((uintptr_t)table % 16 || (uintptr_t)out % 16 || C % 4 ||
-               piece % 4))
-    return bad;
+  if (piece < 1 || piece > C) return bad;
+  if (bulk && (misaligned || piece % 4)) return bad;
   const long long need = rows_stage_offset(stages, rows_per_cta) +
                          (bulk ? 4ll * piece * stages : 0);
   if (smem != need || smem > kMaxSmem) return bad;

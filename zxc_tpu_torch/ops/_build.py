@@ -97,11 +97,9 @@ def _bind_attic(L, vp, ci) -> None:
 
 def _bind_gather(L, vp, ci) -> None:
     i64 = ctypes.c_longlong
-    L.zxc_gather_axis1.restype = ci
-    L.zxc_gather_axis1.argtypes = [vp] * 3 + [ci, ci, i64, ci, vp]
     L.zxc_gather_grid.restype = ci
     L.zxc_gather_grid.argtypes = ([vp] * 3 + [ci, ci, i64] + [ci] * 5
-                                  + [i64, ci, ci, vp])
+                                  + [i64] + [ci] * 3 + [vp])
     L.zxc_gather_rows.restype = ci
     L.zxc_gather_rows.argtypes = [vp, ci, ci, vp, ci, vp] + [ci] * 7 + [vp]
 

@@ -21,13 +21,14 @@ its plain version and run by a hand-written kernel:
   ``csrc/attic.cu``, ``zxc_lane_sum_probe``). ``norotate`` is two
   functions: v10_probe drops the roll, v12_ablate adds the roll amount.
 * ``gather_axis1`` and ``gather_grid`` (``tools/tpu_pallas_gather_probe.py``):
-  ``out[i, j] = x[i, idx[i, j]]``; the grid form's ``tile`` is checked,
-  and its schedule is ``grid_plan``'s: the table row in the shared memory
-  of a cluster of CTAs, each answering the indices of its own slice, or
-  read from L2 where it does not fit.
+  ``out[i, j] = x[i, idx[i, j]]``; the grid form's ``tile`` is checked.
+  Both run the same kernels on ``grid_plan``'s schedule: the table row in
+  the shared memory of a cluster of CTAs, each answering the indices of
+  its own slice, where the index reads each row element 4 times or more;
+  else read through L1 and L2, a run of one row's columns a CTA.
 * ``gather_rows`` (``tools/tpu_indirect_dma_probe.py``, ``build_a/b/c``):
   ``out[i] = table[idx[i]]``, by bulk async row copies one at a time a CTA
-  (``dma_a``), one CTA a row all at once (``dma_b``) or bulk row copies
+  (``dma_a``), a warp a row all at once (``dma_b``) or bulk row copies
   pipelined through a ring of stages a CTA (``dma_c``), over the grid of
   ``row_plan``; ``csrc/gather.cu``.
 
@@ -56,22 +57,28 @@ V10_PROBE_MODES = ("full", "norotate", "nobcast", "noonehot", "nomatmul")
 V12_ABLATE_MODES = ("full", "nomatmul", "norotate", "nomask", "floor")
 V12_MODE = CE.QUAD_MODES[12]
 ROW_FORMS = {"a": 0, "b": 1, "c": 2}     # build_a, build_b, build_c
-# The row gather's geometry for forms a and c (build_a, build_c), chosen by
-# measurement on the card (``python3 -m zxc_tpu_torch.row_gather_sweep``;
-# PERF.md, P6): output rows a CTA and stages a CTA at the probe's shape,
+# The row gather's geometry, chosen by measurement on the card (``python3
+# -m zxc_tpu_torch.row_gather_sweep`` for forms a and c, ``python3 -m
+# zxc_tpu_torch.gather_ab`` for b; PERF.md, P6): output rows a CTA (form
+# b: warps a CTA, a warp a row) and stages a CTA at the probe's shape,
 # the largest piece of a row one bulk copy moves on 48,000-byte rows.
-ROWS_PER_CTA = {"a": 1, "c": 2}
+ROWS_PER_CTA = {"a": 1, "b": 8, "c": 2}
 STAGES = {"a": 1, "c": 2}
 STAGE_BYTES = 8192
-# The grid gather's geometry (``grid_plan``; ``csrc/gather.cu``): 1024
-# threads a CTA of the cluster form, 256 of the L2 form, 16 index columns
-# a thread at a time; clusters of at most 8 CTAs, each holding at most
-# 200 KiB of its row.
+# The grid gather's geometry (``grid_plan``; ``csrc/gather.cu``): the
+# cluster form's CTAs of 1024 threads, 16 index columns a thread at a time,
+# clusters of at most 8 CTAs, each holding at most 200 KiB of its row,
+# where the index reads each row element GRID_CLUSTER_READS times or more;
+# the L2 form's CTAs of 64-512 threads (kGridL2Cols = 16 columns a thread
+# a pass), about one CTA an SM. Set by measurement on the card (``python3
+# -m zxc_tpu_torch.gather_ab``; PERF.md, P6).
 GRID_THREADS = 1024
-GRID_L2_THREADS = 256
 GRID_COLS = 16
+GRID_L2_THREADS = (64, 128, 256, 512)
+GRID_L2_COLS = 16
 GRID_MAX_CLUSTER = 8
 GRID_MAX_SLICE = 200 << 10
+GRID_CLUSTER_READS = 4
 
 
 # -- quad probes: tpu_v13_bisect.py, tpu_v12_ablate2.py ----------------------
@@ -258,33 +265,17 @@ def _gather_operands(name: str, x, idx) -> None:
             raise ValueError(f"{name} operands must be contiguous")
 
 
-def gather_axis1(x, idx) -> torch.Tensor:
-    """``tpu_pallas_gather_probe.pallas_gather_axis1``: ``out[i, j] =
-    x[i, idx[i, j]]`` for x (M, N) int32 or uint8 and idx (M, NI) int32;
-    the CUDA kernel for CUDA tensors, the plain version for CPU tensors."""
-    if not CE._on_card("gather_axis1", x):
-        return gather_axis1_reference(x, idx)
-    _gather_operands("gather_axis1", x, idx)
-    from . import _build
-    M, N = x.shape
-    out = torch.empty(idx.shape, dtype=x.dtype, device=x.device)
-    with torch.cuda.device(x.device):
-        attic._launch("gather_axis1", _build.gather_kernels().zxc_gather_axis1,
-                      x.data_ptr(), idx.data_ptr(), out.data_ptr(), M, N,
-                      idx.shape[1], x.element_size())
-    gather_axis1.launches += 1
-    return out
-
-
 class GridPlan(NamedTuple):
     """The launch geometry of the grid gather ``zxc_gather_grid`` takes.
     ``form`` "cluster": each row i has ``clusters`` clusters of ``K``
-    CTAs; CTA rank r of a cluster holds elements [r * slice, (r + 1) *
-    slice) of row i in ``smem`` bytes of shared memory, and every CTA of
-    cluster c takes index columns [c * cols, (c + 1) * cols), writing the
-    outputs whose element it holds. ``form`` "l2": ``clusters`` CTAs a row
-    of ``cols`` columns each, the row read from L2 (K 1, slice and smem
-    0), with 16-byte index loads and output stores where ``vec``."""
+    CTAs of ``threads`` = 1024; CTA rank r of a cluster holds elements [r
+    * slice, (r + 1) * slice) of row i in ``smem`` bytes of shared memory,
+    and every CTA of cluster c takes index columns [c * cols, (c + 1) *
+    cols), writing the outputs whose element it holds. ``form`` "l2":
+    ``clusters`` CTAs of ``threads`` a row, ``cols`` columns each in
+    passes of threads * 16, the row read through L1 and L2 (K 1, slice
+    and smem 0), with 16-byte index loads and output stores where
+    ``vec``."""
     M: int
     N: int
     NI: int
@@ -296,54 +287,97 @@ class GridPlan(NamedTuple):
     cols: int
     vec: bool
     smem: int
+    threads: int
 
 
 def grid_plan(M: int, N: int, NI: int, esize: int, aligned: bool = True,
               sms: int = 132) -> GridPlan:
     """The grid gather's geometry for x (M, N) of ``esize``-byte elements
-    and idx (M, NI): the cluster form when the row fits the shared memory
-    of a cluster of at most 8 CTAs, with enough clusters a row to fill
-    ``sms`` SMs (one CTA of 1024 threads an SM) and at least one pass of
-    the CTA's threads each; else the L2 form, with 16-byte access when
+    and idx (M, NI). The cluster form where the row fits the shared memory
+    of a cluster of at most 8 CTAs and the index reads each row element
+    ``GRID_CLUSTER_READS`` times or more (NI >= 4 N), with enough clusters
+    a row to fill ``sms`` SMs (one CTA of 1024 threads an SM) and at least
+    one pass of the CTA's threads each: the fill of the row's slices pays
+    only over many reads. Else the L2 form, about one CTA an SM: ``sms //
+    M`` CTAs a row (at least one), each a contiguous run of the row's
+    columns, so that its table reads stay within one row and hit the SM's
+    L1; the widest CTA (512 threads at most) whose pass of 16 columns a
+    thread fits the run, 64 threads at least. 16-byte access where
     ``aligned`` (the index and output rows start on 16 bytes) and NI is a
     multiple of 16 / esize."""
     v = 16 // esize
     K = 1
     while K <= GRID_MAX_CLUSTER and -(-N // K) * esize > GRID_MAX_SLICE:
         K *= 2
-    if N > 0 and K <= GRID_MAX_CLUSTER:
+    if 0 < N and K <= GRID_MAX_CLUSTER and NI >= GRID_CLUSTER_READS * N:
         slice_ = -(-(-(-N // K)) // v) * v
         clusters = max(1, min(sms // max(1, M * K),
                               -(-NI // (GRID_THREADS * GRID_COLS))))
         return GridPlan(M, N, NI, esize, "cluster", K, clusters, slice_,
-                        -(-NI // clusters), False, slice_ * esize)
-    cols = GRID_L2_THREADS * GRID_COLS
-    return GridPlan(M, N, NI, esize, "l2", 1, -(-NI // cols), 0, cols,
-                    aligned and NI % v == 0, 0)
+                        -(-NI // clusters), False, slice_ * esize,
+                        GRID_THREADS)
+    run = -(-NI // max(1, sms // max(1, M)))
+    threads = max([t for t in GRID_L2_THREADS if t * GRID_L2_COLS <= run],
+                  default=GRID_L2_THREADS[0])
+    return l2_plan(M, N, NI, esize, aligned, threads,
+                   -(-run // (threads * GRID_L2_COLS)))
 
 
-def _launch_grid(x, idx, out, plan: GridPlan) -> None:
+def l2_plan(M: int, N: int, NI: int, esize: int, aligned: bool,
+            threads: int, passes: int) -> GridPlan:
+    """The L2 form: CTAs of ``threads``, each ``passes`` passes of
+    ``threads * GRID_L2_COLS`` columns of a row."""
+    cols = threads * GRID_L2_COLS * max(1, passes)
+    return GridPlan(M, N, NI, esize, "l2", 1, max(1, -(-NI // cols)), 0,
+                    cols, aligned and NI % (16 // esize) == 0, 0, threads)
+
+
+def _launch_grid(x, idx, out, plan: GridPlan,
+                 name: str = "gather_grid") -> None:
     from . import _build
     with torch.cuda.device(x.device):
-        attic._launch("gather_grid", _build.gather_kernels().zxc_gather_grid,
+        attic._launch(name, _build.gather_kernels().zxc_gather_grid,
                       x.data_ptr(), idx.data_ptr(), out.data_ptr(), plan.M,
                       plan.N, plan.NI, plan.esize,
                       int(plan.form == "cluster"), plan.K, plan.clusters,
-                      plan.slice, plan.cols, int(plan.vec), plan.smem)
+                      plan.slice, plan.cols, int(plan.vec), plan.smem,
+                      plan.threads)
 
 
 def gather_grid_plan(x, idx, out) -> GridPlan:
-    """``grid_plan`` of CUDA operands as ``gather_grid`` launches them."""
+    """``grid_plan`` of CUDA operands as ``gather_axis1`` and
+    ``gather_grid`` launch them."""
     (M, N), NI = x.shape, idx.shape[1]
     aligned = idx.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     return grid_plan(M, N, NI, x.element_size(), aligned, sms)
 
 
+def _grid_gather(name: str, x, idx) -> torch.Tensor:
+    """The grid gather's kernels on CUDA operands, in ``grid_plan``'s
+    geometry."""
+    _gather_operands(name, x, idx)
+    out = torch.empty(idx.shape, dtype=x.dtype, device=x.device)
+    _launch_grid(x, idx, out, gather_grid_plan(x, idx, out), name)
+    return out
+
+
+def gather_axis1(x, idx) -> torch.Tensor:
+    """``tpu_pallas_gather_probe.pallas_gather_axis1``: ``out[i, j] =
+    x[i, idx[i, j]]`` for x (M, N) int32 or uint8 and idx (M, NI) int32;
+    the grid gather's kernels (``grid_plan``) for CUDA tensors, counted
+    here and not in ``gather_grid``; the plain version for CPU tensors."""
+    if not CE._on_card("gather_axis1", x):
+        return gather_axis1_reference(x, idx)
+    out = _grid_gather("gather_axis1", x, idx)
+    gather_axis1.launches += 1
+    return out
+
+
 def gather_grid(x, idx, tile: int) -> torch.Tensor:
     """``tpu_pallas_gather_probe.pallas_gather_grid``: ``gather_axis1``'s
     function; NI must be a multiple of ``tile``, which the card's schedule
-    (``grid_plan``) does not otherwise follow. The CUDA kernel for CUDA
+    (``grid_plan``) does not otherwise follow. The CUDA kernels for CUDA
     tensors, the plain version for CPU tensors."""
     _check_gather(x, idx)
     if tile < 1 or idx.shape[1] % tile:
@@ -351,9 +385,7 @@ def gather_grid(x, idx, tile: int) -> torch.Tensor:
                          f"{idx.shape[1]} index columns")
     if not CE._on_card("gather_grid", x):
         return gather_axis1_reference(x, idx)
-    _gather_operands("gather_grid", x, idx)
-    out = torch.empty(idx.shape, dtype=x.dtype, device=x.device)
-    _launch_grid(x, idx, out, gather_grid_plan(x, idx, out))
+    out = _grid_gather("gather_grid", x, idx)
     gather_grid.launches += 1
     return out
 
@@ -382,10 +414,13 @@ def gather_rows_reference(table, idx) -> torch.Tensor:
 class RowPlan(NamedTuple):
     """The launch geometry of the row gather ``zxc_gather_rows`` takes:
     ``grid`` CTAs, each copying output rows ``[k * rows_per_cta, (k + 1)
-    * rows_per_cta)`` of the G rows (form b: one CTA a row); a row of C
-    words in pieces of at most ``piece`` words, each through one of
-    ``stages`` shared-memory stages when ``bulk``, else by the CTA's
-    threads with plain loads; ``smem`` bytes of dynamic shared memory."""
+    * rows_per_cta)`` of the G rows. Forms a and c: a row of C words in
+    pieces of at most ``piece`` words, each through one of ``stages``
+    shared-memory stages when ``bulk``, else by the CTA's threads with
+    plain loads; ``smem`` bytes of dynamic shared memory. Form b: a warp
+    a row (``rows_per_cta`` warps a CTA), ``piece`` C, no stage and no
+    shared memory; ``bulk`` there means 16-byte loads and stores a
+    lane."""
     G: int
     C: int
     grid: int
@@ -407,15 +442,25 @@ def _row_plan(G: int, C: int, aligned: bool, rows_per_cta: int,
                    stages, bulk, head + (4 * piece * stages if bulk else 0))
 
 
+def warp_row_plan(G: int, C: int, aligned: bool,
+                  warps: int) -> RowPlan:
+    """Form b at ``warps`` rows a CTA (``gather_ab`` sweeps them): 16-byte
+    copies where the table and the output start on 16 bytes and C % 4 ==
+    0, else 4-byte copies, in the same kernel."""
+    return RowPlan(G, C, -(-G // warps), warps, C, 0,
+                   aligned and C % 4 == 0, 0)
+
+
 def row_plan(G: int, C: int, form: str, aligned: bool = True) -> RowPlan:
     """The geometry of a row gather of G rows of C int32 words in ``form``;
     ``aligned``: the table and the output start on 16 bytes. Forms a and c
     copy rows by bulk copies only when every row is 16-byte aligned and a
-    multiple of 16 bytes, else by the kernel's edge path."""
+    multiple of 16 bytes, else by the kernel's edge path; form b copies 16
+    bytes a lane under the same condition, else 4."""
     if form not in ROW_FORMS:
         raise ValueError(f"row gather form {form}: a, b or c")
     if form == "b":
-        return RowPlan(G, C, G, 1, C, 0, False, 0)
+        return warp_row_plan(G, C, aligned, ROWS_PER_CTA["b"])
     return _row_plan(G, C, aligned, ROWS_PER_CTA[form], STAGES[form],
                      STAGE_BYTES)
 
@@ -432,8 +477,8 @@ def _launch_rows(table, idx, out, form: str, plan: RowPlan) -> None:
 
 def gather_rows(table, idx, form: str) -> torch.Tensor:
     """``tpu_indirect_dma_probe``'s row gather in ``form`` "a" (one row
-    at a time a CTA), "b" (all rows at once) or "c" (rows pipelined a
-    CTA), over the grid of ``row_plan``: the CUDA kernel for CUDA
+    at a time a CTA), "b" (all rows at once, a warp a row) or "c" (rows
+    pipelined a CTA), over the grid of ``row_plan``: the CUDA kernel for CUDA
     tensors, the plain version for CPU tensors. The launch counts in
     ``dma_a``, ``dma_b`` or ``dma_c``."""
     if form not in ROW_FORMS:
@@ -458,7 +503,7 @@ def dma_a(table, idx) -> torch.Tensor:
 
 
 def dma_b(table, idx) -> torch.Tensor:
-    """``build_b``: one indirect DMA of every row."""
+    """``build_b``: one indirect DMA of every row; a warp a row."""
     return gather_rows(table, idx, "b")
 
 
