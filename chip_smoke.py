@@ -18,8 +18,10 @@ Phases, in order; any failure exits non-zero before the result line:
    tools/corpus_manifest.json), encoded by the port's native encoder at
    level 3 with 64 KiB blocks (512 blocks, 32 dispatch groups of 16), with
    4 KiB blocks (8192 blocks, 512 groups), with the default 512 KiB blocks
-   (64 blocks, one device batch of 64) and seekable with 64 KiB blocks;
-   ``write_hints`` of the 64 KiB archive, timed on its own;
+   (64 blocks, one device batch of 64) and seekable with 64 KiB blocks,
+   and its first 4 MiB at level 7 with 64 KiB blocks (the deepest PivCo
+   trees, 11-bit codes); ``write_hints`` of the 64 KiB archive, timed on
+   its own;
 3. each kernel against its plain PyTorch version on the card, on the first
    dispatch group as the port's pipelines ship it (v19, v26: the cold
    prep, and v26 also on the 512 KiB archive's first group, 32 supertiles
@@ -90,14 +92,24 @@ Phases, in order; any failure exits non-zero before the result line:
    archive must decode to the corpus through the native decoder and
    ``decompress_e2e``, stay within 2% of the native encoder's size, and
    its first 1 MiB must equal the CPU route's archive; a 1 MiB run at
-   128 KiB blocks (the XLA matcher) must decode. Wall time, GB/s and
-   phase times, and the device busy share of one cold v26 decode, one
-   hint decode, one default-route decode at 512 KiB and one device encode
-   (torch.profiler);
+   128 KiB blocks (the XLA matcher) must decode. The device entropy
+   decode ``ops.decompress(device_entropy=True)`` (the PivCo literal
+   sections routed on the card from their wire bytes by
+   ``pivco_device.route_sections``, tensor ops, then the chase route)
+   over the 64 KiB and 512 KiB level-3 archives and the level-7 archive:
+   each equal to its plaintext, route ``chase``, sections deferred, no
+   hand-written kernel launched, with the H2D bytes of the deferred route
+   and of the chase route on host literals; ``Dctx(device=True)`` on the
+   512 KiB archive inside ``profiling.collect_phases()``, and one decode
+   inside ``profiling.trace``, whose trace must hold CUDA events. Wall
+   time, GB/s and phase times, and the device busy share of one cold v26
+   decode, one hint decode, one default-route decode at 512 KiB, the
+   chase route and the device entropy route at 512 KiB (which must show
+   device time) and one device encode (torch.profiler);
 5. corruption must raise ZxcError: a flipped payload byte with checksums
-   on and a truncated archive (cold path, default route and serial
-   route), a hint of another archive, a truncated hint and a hint whose
-   qbase carries the (1<<24)|64 flip.
+   on and a truncated archive (cold path, default route, serial route and
+   device entropy route), a hint of another archive, a truncated hint and
+   a hint whose qbase carries the (1<<24)|64 flip.
 
 It prints a ``{"kernels": [...]}`` line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Without CUDA, or outside a checkout of
@@ -172,6 +184,7 @@ ENC_REPLACES = {"lcp": "zxc_tpu/ops/pallas_encode.py:202",
                 "parse_walk": "zxc_tpu/ops/pallas_encode.py:257"}
 ENC_LEVEL = 3
 XLA_BLOCK = 128 << 10
+HEAD_BYTES = 4 << 20          # the first 4 MiB
 
 
 def fail(msg: str) -> None:
@@ -708,9 +721,10 @@ def fmt_phases(ph: dict) -> str:
                      for k, v in ph.items()) or "not recorded"
 
 
-def profile_share(name, fn) -> None:
+def profile_share(name, fn) -> float | None:
     """Device busy share of one decode (torch.profiler, CUPTI): kernel and
-    copy time on the card over the decode's wall time."""
+    copy time on the card over the decode's wall time. Returns the busy
+    seconds, None when the profiler recorded no device time."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -726,7 +740,7 @@ def profile_share(name, fn) -> None:
     if not busy_us:
         print(f"profile {name}: the profiler recorded no device time "
               "(device busy share not measured)", flush=True)
-        return
+        return None
     top = sorted(busy_us.items(), key=lambda kv: -kv[1])[:4]
     busy = sum(busy_us.values()) / 1e6
     print(f"profile {name}: wall {wall:.4f} s, device busy {busy:.5f} s "
@@ -734,6 +748,40 @@ def profile_share(name, fn) -> None:
           + ", ".join(f"{k[:48]} {v / 1e3:.3f} ms ({calls[k]} calls)"
                       for k, v in top),
           flush=True)
+    return busy
+
+
+def h2d_bytes(BT, PV, arc: bytes, batch: int) -> dict:
+    """Bytes the chase route (``decode_plan_device``) ships to the card:
+    each padded batch's arrays, and with deferred sections also their
+    ``pad_plans`` arrays (wire bytes and routing tables); the deferred
+    blocks' literal rows still ship, as zeros. Returns {"host": bytes with
+    host-decoded literals, "deferred": bytes with deferred sections,
+    "zero_rows": the zero literal bytes inside "deferred"}."""
+    from zxc_tpu_torch.codec.block_decode import DeferredSection
+    out = {}
+    for key, defer in (("host", False), ("deferred", True)):
+        plan = BT.plan_frame(arc, defer_entropy=defer)
+        S, L = BT._pow2(plan.max_seq), BT._pow2(plan.max_lit)
+        nb = plan.n_blocks
+        Bsz = BT._pow2(min(batch, nb), lo=4)
+        total = zero = 0
+        for base in range(0, nb, Bsz):
+            idx = range(base, min(base + Bsz, nb))
+            total += sum(a.nbytes for a in BT._pad_batch(plan, idx, S, L,
+                                                         B=Bsz))
+            secs = [plan.lit[i] for i in idx
+                    if isinstance(plan.lit[i], DeferredSection)]
+            if secs:
+                plans = [PV.plan_section(s.payload, s.n, s.tree)
+                         for s in secs]
+                args = PV.pad_plans([s.payload for s in secs], plans, L=L)[0]
+                total += sum(a.nbytes for a in args)
+                zero += len(secs) * L
+        out[key] = total
+        if defer:
+            out["zero_rows"] = zero
+    return out
 
 
 def flipped_qbase_hint(H, path: str, out_path: str) -> None:
@@ -768,7 +816,7 @@ def main() -> None:
     from zxc_tpu_torch.ops import device_pipeline as DP
     from zxc_tpu_torch.ops import batch as BT, hints as H, serial as S
     from zxc_tpu_torch.ops import attic as AT, attic_quad as AQ
-    from zxc_tpu_torch.ops import probes as P
+    from zxc_tpu_torch.ops import probes as P, pivco_device as PV
     from zxc_tpu_torch.codec.seekable import Seekable
     from gen_corpus import gen_corpus
 
@@ -808,6 +856,9 @@ def main() -> None:
                                            threads=threads))
     arc_sek = Z.compress(data, Z.EncodeOpts(level=3, block_size=BLOCK,
                                             seekable=True, threads=threads))
+    head = data[:HEAD_BYTES]
+    arc7 = Z.compress(head, Z.EncodeOpts(level=7, block_size=BLOCK,
+                                         threads=threads))
     walk = DP.walk_frame(arc)
     n_groups = -(-walk.n_blocks // DISPATCH)
     n_groups4 = -(-DP.walk_frame(arc4).n_blocks // DISPATCH)
@@ -817,7 +868,8 @@ def main() -> None:
           f"{n_groups} groups; 4 KiB archive {len(arc4)} bytes, "
           f"{n_groups4} groups; 512 KiB archive {len(arc512)} bytes "
           f"({len(arc512) / len(data):.4f}), {n_blocks512} blocks; seekable "
-          f"64 KiB archive {len(arc_sek)} bytes "
+          f"64 KiB archive {len(arc_sek)} bytes; first 4 MiB at level 7 "
+          f"{len(arc7)} bytes ({len(arc7) / len(head):.4f}) "
           f"({time.perf_counter() - t0:.2f} s)", flush=True)
     # hint files go to a scratch directory under the checkout's build/
     # (gitignored), removed at exit
@@ -1037,6 +1089,37 @@ def main() -> None:
              default_route(arc, "pieces"), data)
     run_path("chase route, 512 KiB blocks", None, 0,
              default_route(arc512, "chase", use_pieces=False), data)
+    # the device entropy decode: the PivCo literal sections routed on the
+    # card from their wire bytes (tensor ops), then the chase route
+    def entropy_route(a):
+        def fn(ph):
+            out = Z.ops.decompress(a, device="cuda", device_entropy=True,
+                                   _phases=ph)
+            check(ph["route"] == "chase" and ph["entropy_sections"] > 0,
+                  f"device entropy route: route {ph['route']}, "
+                  f"{ph.get('entropy_sections')} sections")
+            return out
+        return fn
+
+    for name, a, want in (("64 KiB blocks", arc, data),
+                          ("512 KiB blocks", arc512, data),
+                          ("level 7, first 4 MiB", arc7, head)):
+        run_path(f"device entropy route, {name}", None, 0,
+                 entropy_route(a), want)
+        hb = h2d_bytes(BT, PV, a, BT.DEFAULT_BATCH)
+        print(f"device entropy route, {name}: H2D {hb['deferred']} bytes "
+              f"({hb['zero_rows']} of them zero literal rows) against "
+              f"{hb['host']} for the chase route on host literals "
+              f"({hb['deferred'] / hb['host']:.4f})", flush=True)
+    with Z.profiling.collect_phases() as col:
+        t0 = time.perf_counter()
+        check(Z.Dctx(device=True).decompress(arc512) == data,
+              "Dctx(device=True) differs from the corpus")
+        t_ctx = time.perf_counter() - t0
+    print(f"Dctx(device=True), 512 KiB blocks: {t_ctx:.4f} s, equal; "
+          f"collected phases {col.as_dict()}", flush=True)
+    check(set(col.as_dict()) == {"plan", "resolve", "device"},
+          f"collect_phases recorded {col.as_dict()}")
     sek = Seekable.open_bytes(arc_sek)
     lo, n = 3 * BLOCK + 12345, 10 * BLOCK + 777
     run_path("decompress_range_device, 11 blocks of 64 KiB", None, 0,
@@ -1053,7 +1136,6 @@ def main() -> None:
         "serial attic variant 2 (64 KiB blocks)", "attic", n_groups,
         lambda ph: Z.ops.decompress(arc, device="cuda", use_serial=True,
                                     variant=2, _phases=ph), data)
-    head = data[:4 << 20]
     arc_head = Z.compress(head, Z.EncodeOpts(level=3, block_size=BLOCK,
                                              threads=threads))
     for variant in (1, 3):
@@ -1217,8 +1299,25 @@ def main() -> None:
     # the chase route's gathers: 5 fixed ones, one scatter, one a round
     profile_share("chase route, 512 KiB blocks", lambda: Z.ops.decompress(
         arc512, device="cuda", use_pieces=False))
+    check(profile_share("device entropy route, 512 KiB blocks",
+                        lambda: Z.ops.decompress(arc512, device="cuda",
+                                                 device_entropy=True))
+          is not None, "the device entropy route showed no device time")
     profile_share("compress_device", lambda: Z.ops.compress_device(
         data, level=ENC_LEVEL, block_size=BLOCK))
+    # after the busy-share profiles: a profiler run before them can
+    # make them lose events
+    with Z.profiling.trace(out_dir) as trace_path:
+        Z.ops.decompress(arc512, device="cuda", device_entropy=True)
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    on_card = sum(ev.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
+                  for ev in events)
+    check(on_card > 0, f"profiling.trace recorded no CUDA event "
+          f"({len(events)} events)")
+    print(f"profiling.trace, device entropy route at 512 KiB: "
+          f"{len(events)} events, {on_card} on the card "
+          f"({os.path.getsize(trace_path)} bytes)", flush=True)
 
     # -- 5. corruption -------------------------------------------------------
     small = Z.compress(data[:4 * BLOCK], Z.EncodeOpts(
@@ -1246,6 +1345,12 @@ def main() -> None:
                 bytes(bad), ck, device="cuda", use_serial=True)),
             ("truncated archive, serial", lambda: Z.ops.decompress(
                 small[:len(small) // 2], device="cuda", use_serial=True)),
+            ("flipped payload byte, device entropy",
+             lambda: Z.ops.decompress(bytes(bad), ck, device="cuda",
+                                      device_entropy=True)),
+            ("truncated archive, device entropy", lambda: Z.ops.decompress(
+                small[:len(small) // 2], device="cuda",
+                device_entropy=True)),
             ("hint of another archive", lambda: Z.decompress_e2e(
                 arc, device="cuda", hint=small_hint)),
             ("truncated hint", lambda: Z.decompress_e2e(

@@ -25,8 +25,11 @@ of 32 batches a tile and with every slot spanning all 128 lanes; and the
 cold, hint, serial, v25 and attic decodes
 (``attic_quad``'s ten entries included), the default expansion route (no
 hand-written kernel),
-``Seekable.decompress_range_device`` and the device encode against the
-CPU path. They need an NVIDIA card with
+``Seekable.decompress_range_device``, the device entropy decode
+(``pivco_device.route_sections`` on levels 3 and 7 sections, and
+``ops.decompress(device_entropy=True)`` at 16, 64 and 512 KiB blocks,
+kernel-free, with its corruption refusals), ``Dctx(device=True)``,
+``entry.entry()`` and the device encode against the CPU path. They need an NVIDIA card with
 nvcc, are marked ``cuda`` and skip without one. On the card:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
@@ -1122,6 +1125,78 @@ def test_default_and_chase_routes_on_card(card, block):
             == Z.ops.decompress(arc, device="cpu", batch=8, **kw)
         assert ph["route"] == ("chase" if kw else "pieces")
     assert _all_launches() == before    # tensor ops only
+
+
+def _corpus_head(nbytes: int) -> bytes:
+    """The pinned corpus's first ``nbytes`` (``tools/gen_corpus.py``):
+    about half its blocks carry PivCo literal sections at level 3."""
+    import os
+    import sys
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "tools"))
+    from gen_corpus import gen_corpus
+    return gen_corpus(nbytes)
+
+
+def _every_launch():
+    from zxc_tpu_torch.ops import probes as P
+    return _all_launches() + sum(k.launches for k in P.KERNELS.values())
+
+
+@pytest.mark.parametrize("level", [3, 7])
+def test_route_sections_on_card_equals_cpu(card, level):
+    from zxc_tpu_torch.codec.block_decode import DeferredSection
+    from zxc_tpu_torch.ops import pivco_device as PV
+    arc = Z.compress(_corpus_head(4 << 20), Z.EncodeOpts(level=level,
+                                                         block_size=65536))
+    secs = [l for l in Z.ops.plan_frame(arc, defer_entropy=True).lit
+            if isinstance(l, DeferredSection)]
+    assert secs
+    args = ([s.payload for s in secs], [s.n for s in secs],
+            [s.tree for s in secs])
+    got = PV.decode_sections_device(*args)
+    want = PV.decode_sections_device(*args, device="cpu")
+    for g, w, s in zip(got, want, secs):
+        assert np.array_equal(g, w) and np.array_equal(g, s.decode())
+    # padding lanes included, and a wider L
+    plans = [PV.plan_section(*a) for a in zip(*args)]
+    host, L, _, _, rounds = PV.pad_plans(args[0], plans, L=1 << 17)
+    on_card = PV.route_padded(host, L, rounds, card).cpu()
+    assert torch.equal(on_card, PV.route_padded(host, L, rounds, "cpu"))
+
+
+@pytest.mark.parametrize("level,block", [(3, 65536), (7, 16384),
+                                         (3, 524288)])
+def test_device_entropy_route_on_card(card, level, block):
+    data = _corpus_head(4 << 20)
+    arc = Z.compress(data, Z.EncodeOpts(level=level, block_size=block,
+                                        checksum=True))
+    before = _every_launch()
+    ph = {}
+    ck = Z.DecodeOpts(checksum=True)
+    assert Z.ops.decompress(arc, ck, device_entropy=True, _phases=ph) \
+        == data == Z.ops.decompress(arc, ck, device="cpu",
+                                    device_entropy=True)
+    assert _every_launch() == before    # tensor ops only
+    assert ph["route"] == "chase" and ph["entropy_sections"] > 0
+    bad = bytearray(arc)
+    bad[len(bad) // 2] ^= 0x41
+    for a, opts in ((bytes(bad), ck), (arc[:len(arc) // 2], None)):
+        with pytest.raises(Z.ZxcError):
+            Z.ops.decompress(a, opts, device_entropy=True)
+
+
+def test_dctx_and_entry_on_card(card):
+    from zxc_tpu_torch import entry
+    data = _corpus_head(1 << 20)
+    arc = Z.compress(data, Z.EncodeOpts(level=3, block_size=65536))
+    assert Z.Dctx(device=True).decompress(arc) == data
+    assert Z.Dctx(device="cuda", checksum=True).decompress(arc) == data
+    fn, args = entry.entry()
+    assert all(a.is_cuda for a in args)
+    fc, ac = entry.entry(device="cpu")
+    for g, w in zip(fn(*args), fc(*ac)):
+        assert torch.equal(g.cpu(), w)
 
 
 def test_decompress_range_device_on_card(card):

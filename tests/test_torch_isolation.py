@@ -36,7 +36,9 @@ def test_import_leaves_jax_and_zxc_tpu_out():
             "zxc_tpu_torch.codec.block_encode, zxc_tpu_torch.ops.expand, "
             "zxc_tpu_torch.ops.attic, zxc_tpu_torch.ops.attic_quad, "
             "zxc_tpu_torch.ops.probes, zxc_tpu_torch.codec.seekable, "
-            "zxc_tpu_torch.gather_ab\n"
+            "zxc_tpu_torch.gather_ab, zxc_tpu_torch.ops.pivco_device, "
+            "zxc_tpu_torch.context, zxc_tpu_torch.profiling, "
+            "zxc_tpu_torch.entry\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'jaxlib')) or m == 'zxc_tpu' "
             "or m.startswith('zxc_tpu.'))\n"
@@ -82,6 +84,10 @@ def test_no_device_means_cuda_and_raises_without_it(tmp_path):
                  lambda **kw: Z.ops.decompress(arc, **kw),
                  lambda **kw: Z.ops.decompress(arc, use_serial=True, **kw),
                  lambda **kw: Z.ops.decompress(arc, use_pieces=False, **kw),
+                 lambda **kw: Z.ops.decompress(arc, device_entropy=True,
+                                               **kw),
+                 lambda **kw: Z.Dctx(device=kw.get("device", True))
+                 .decompress(arc),
                  lambda **kw: sek.decompress_range_device(0, 30000, **kw),
                  lambda **kw: b"".join(AQ.decode_blocks_v15(
                      *Z.ops.batch.resolve_serial(plan), plan.totals, 16384,

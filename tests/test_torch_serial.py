@@ -327,17 +327,21 @@ def test_serial_empty_and_errors():
 
 
 def test_serial_routes_not_ported_raise(monkeypatch):
-    """The expansion route (use_serial=False) and the serial route's
-    fall-through past the piece budget equal the JAX package; device
-    entropy and attic variants past 3 still raise."""
+    """The expansion route (use_serial=False), device entropy (the chase
+    route) and the serial route's fall-through past the piece budget
+    equal the JAX package; attic variants past 3 still raise."""
     data, arc, _ = _case("l3", 4096)
     ph = {}
     assert Z.ops.decompress(arc, device="cpu", use_serial=False,
                             _phases=ph) == JB.decompress(arc) == data
     assert ph["route"] == "pieces"
-    for kw in (dict(device_entropy=True), dict(use_serial=True, variant=21)):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue"):
-            Z.ops.decompress(arc, device="cpu", **kw)
+    ph = {}
+    assert Z.ops.decompress(arc, device="cpu", device_entropy=True,
+                            _phases=ph) \
+        == JB.decompress(arc, device_entropy=True) == data
+    assert ph["route"] == "chase"
+    with pytest.raises(NotImplementedError, match="ROADMAP queue"):
+        Z.ops.decompress(arc, device="cpu", use_serial=True, variant=21)
     # a block over the resolver's piece budget: the serial route falls
     # through to the expansion route (the chase, as no block has pieces)
     for mod in (prt, jrt):

@@ -5,10 +5,14 @@ native block decode that ``codec.seekable`` uses on the host.
 
 The literal section decodes natively (RLE: ``zxch_rle_decode``; PivCo:
 ``zxch_pivco_decode``), and so do the varint extras
-(``zxch_varint_chain``). Error codes equal the JAX package's. Device
-entropy decode (``defer_entropy``) is not part of the port yet.
+(``zxch_varint_chain``). Error codes equal the JAX package's. With
+``defer_entropy`` a PivCo literal section (enc_lit 2 or 3) stays as wire
+bytes, a ``DeferredSection``, for the device entropy decode
+(``ops.pivco_device``); the token section still decodes on the host.
 """
 from __future__ import annotations
+
+from dataclasses import dataclass
 
 import numpy as np
 
@@ -50,9 +54,26 @@ def _resolve_extras(mask_a: np.ndarray, mask_b: np.ndarray,
     return a, b
 
 
+@dataclass
+class DeferredSection:
+    """A PivCo literal section kept as wire bytes for the device entropy
+    decode (``ops.pivco_device``): the batch ships the node runs instead
+    of the decoded symbols. ``payload`` excludes the 128-byte lengths
+    header; the tree is built on the host either way."""
+    payload: np.ndarray   # u8 node-run bytes
+    n: int                # symbol count
+    tree: object          # huffman.PivcoTree
+
+    def __len__(self):    # size bookkeeping treats it like the array
+        return self.n
+
+    def decode(self) -> np.ndarray:
+        return huffman.decode_payload(self.payload, self.n, self.tree)
+
+
 def _decode_literal_section(enc_lit: int, stream: np.ndarray,
                             required_size: int, dst_capacity: int,
-                            dict_tree) -> np.ndarray:
+                            dict_tree, defer_entropy: bool = False):
     if enc_lit == C.ENC_RAW:
         return stream
     if required_size > dst_capacity:
@@ -62,6 +83,14 @@ def _decode_literal_section(enc_lit: int, stream: np.ndarray,
     if enc_lit == C.ENC_HUFFMAN:
         if required_size == 0:
             return np.zeros(0, np.uint8)
+        if defer_entropy:
+            if len(stream) < C.HUF_TABLE_SIZE:
+                raise ZxcError(ERROR_CORRUPT_DATA,
+                               "section smaller than lengths header")
+            tree = huffman.build_tree_packed(
+                bytes(stream[:C.HUF_TABLE_SIZE]))
+            return DeferredSection(stream[C.HUF_TABLE_SIZE:],
+                                   required_size, tree)
         return huffman.decode_section(stream, required_size)
     if enc_lit == C.ENC_HUFFMAN_DICT:
         if dict_tree is None:
@@ -69,13 +98,17 @@ def _decode_literal_section(enc_lit: int, stream: np.ndarray,
                            "enc_lit=3 without dictionary table")
         if required_size == 0:
             return np.zeros(0, np.uint8)
+        if defer_entropy:
+            return DeferredSection(stream, required_size, dict_tree)
         return huffman.decode_payload(stream, required_size, dict_tree)
     raise ZxcError(ERROR_CORRUPT_DATA, f"bad enc_lit {enc_lit}")
 
 
-def parse_block_glo(payload: np.ndarray, dst_capacity: int, dict_tree=None):
+def parse_block_glo(payload: np.ndarray, dst_capacity: int, dict_tree=None,
+                    defer_entropy: bool = False):
     """GLO payload -> (ll, ml, off, literals): int64 sequences (ml includes
-    MIN_MATCH, off unbiased) and the uint8 literal stream."""
+    MIN_MATCH, off unbiased) and the uint8 literal stream (with
+    ``defer_entropy``, a ``DeferredSection`` for a PivCo one)."""
     nd = C.GNR_HEADER_SIZE + C.GLO_SECTIONS * C.SECTION_DESC_SIZE
     gh, descs = headers.read_gnr_header(payload[:nd].tobytes(),
                                         C.GLO_SECTIONS)
@@ -95,7 +128,8 @@ def parse_block_glo(payload: np.ndarray, dst_capacity: int, dict_tree=None):
     extras = payload[p:p + sz_ext]
 
     literals = _decode_literal_section(gh.enc_lit, lit_stream, raw_lit,
-                                       dst_capacity, dict_tree)
+                                       dst_capacity, dict_tree,
+                                       defer_entropy)
     n_seq = gh.n_sequences
     if sz_off < (n_seq if gh.enc_off == 1 else 2 * n_seq):
         raise ZxcError(ERROR_CORRUPT_DATA, "offsets section too small")
@@ -151,16 +185,18 @@ def parse_block_ghi(payload: np.ndarray, dst_capacity: int):
 
 
 def parse_block(block_type: int, payload: np.ndarray, dst_capacity: int,
-                dict_tree=None):
+                dict_tree=None, defer_entropy: bool = False):
     """Uniform parse for any data block type; a RAW block is the
-    degenerate all-literal case."""
+    degenerate all-literal case. ``defer_entropy``: a GLO block's PivCo
+    literal section comes back as a ``DeferredSection``."""
     if block_type == C.BLOCK_RAW:
         if len(payload) > dst_capacity:
             raise ZxcError(ERROR_OVERFLOW, "RAW block exceeds capacity")
         z = np.zeros(0, np.int64)
         return z, z.copy(), z.copy(), payload
     if block_type == C.BLOCK_GLO:
-        return parse_block_glo(payload, dst_capacity, dict_tree)
+        return parse_block_glo(payload, dst_capacity, dict_tree,
+                               defer_entropy)
     if block_type == C.BLOCK_GHI:
         return parse_block_ghi(payload, dst_capacity)
     raise ZxcError(ERROR_BAD_BLOCK_TYPE, f"type {block_type}")

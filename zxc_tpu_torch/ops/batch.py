@@ -20,9 +20,14 @@ of three routes, as the JAX package routes them:
   (``ops.attic``). A frame with a block over the piece budget falls
   through to the chase route.
 
-The pieces and chase routes are PyTorch tensor ops (the JAX package's
-XLA code) and launch no hand-written kernel. Device entropy decode
-(``device_entropy=True``, ROADMAP queue 1 item 5) and the other attic
+With ``device_entropy=True`` the PivCo literal sections stay as wire
+bytes (``plan_frame(defer_entropy=True)``), decode on the device by
+``pivco_device.route_sections`` and are written into each batch's literal
+rows on the device before the chase expansion; as in the JAX package,
+that forces the chase route, since the resolver needs literal values.
+
+The pieces, chase and entropy routes are PyTorch tensor ops (the JAX
+package's XLA code) and launch no hand-written kernel. The other attic
 variants raise ``NotImplementedError``: as in the JAX package,
 ``decompress`` routes none of them; variants 4-7 and 9-11 have their own
 entries (``attic.decode_blocks_v4/v9/v10/v11``), and so have 12, 14-17 and
@@ -50,8 +55,9 @@ from ..format.hashes import global_hash_update
 from ..format.dictionary import dict_id as compute_dict_id
 from ..codec import block_decode, huffman
 from ..codec.frame import DecodeOpts
-from .. import runtime
-from . import attic, expand, serial
+from .. import profiling, runtime
+from ..codec.block_decode import DeferredSection
+from . import attic, expand, pivco_device, serial
 from .device_pipeline import _add, _device
 
 # Blocks expanded per device batch (the JAX package's DEFAULT_BATCH).
@@ -66,7 +72,7 @@ class FramePlan:
     ll: list = field(default_factory=list)       # per-block int32 (n_seq,)
     ml: list = field(default_factory=list)
     off: list = field(default_factory=list)
-    lit: list = field(default_factory=list)      # per-block uint8 (lit_len,)
+    lit: list = field(default_factory=list)      # uint8 or DeferredSection
     totals: list = field(default_factory=list)   # decoded size per block
     pieces: list = field(default_factory=list)   # (po,pc,ps,pk,lit) or None
     dict_buf: np.ndarray | None = None
@@ -91,6 +97,10 @@ class FramePlan:
                 and all(p is not None for p in self.pieces))
 
     @property
+    def deferred(self) -> bool:
+        return any(isinstance(l, DeferredSection) for l in self.lit)
+
+    @property
     def max_pieces(self) -> int:
         return max((len(p[0]) for p in self.pieces if p is not None),
                    default=0)
@@ -99,7 +109,12 @@ class FramePlan:
         """Flatten match chains into piece plans (the native resolver, on
         a thread pool: ctypes releases the GIL). A block over the piece
         budget keeps ``None`` and the frame decodes through the chase
-        route."""
+        route. A plan with deferred sections has no literal bytes to
+        resolve from: every block keeps ``None``."""
+        if self.deferred:
+            self.pieces = [None] * self.n_blocks
+            return
+
         def one(i):
             return runtime.resolve_pieces(self.ll[i], self.ml[i],
                                           self.off[i], self.lit[i],
@@ -114,10 +129,12 @@ class FramePlan:
                 self.pieces = list(ex.map(one, range(self.n_blocks)))
 
 
-def plan_frame(archive: bytes, opts: DecodeOpts | None = None) -> FramePlan:
+def plan_frame(archive: bytes, opts: DecodeOpts | None = None,
+               defer_entropy: bool = False) -> FramePlan:
     """Walk the frame and parse every block's sections on the host (the
-    JAX package's ``plan_frame`` without ``defer_entropy``; the same
-    fields and the same error codes)."""
+    JAX package's ``plan_frame``: the same fields and the same error
+    codes). ``defer_entropy`` keeps the PivCo literal sections as wire
+    bytes (``DeferredSection``) for the device entropy decode."""
     if len(archive) < C.FILE_HEADER_SIZE + C.FILE_FOOTER_SIZE:
         raise ZxcError(ERROR_SRC_TOO_SMALL)
     fh = headers.read_file_header(archive)
@@ -173,15 +190,18 @@ def plan_frame(archive: bytes, opts: DecodeOpts | None = None) -> FramePlan:
     def parse_one(span):
         btype, p_off, p_size = span
         ll, ml, off, lit = block_decode.parse_block(
-            btype, buf[p_off:p_off + p_size], fh.block_size, dict_tree)
+            btype, buf[p_off:p_off + p_size], fh.block_size, dict_tree,
+            defer_entropy)
         lit_used = int(ll.sum())
         if lit_used > len(lit):
             raise ZxcError(ERROR_OVERFLOW, "literal stream exhausted")
         total = int((ll + ml).sum()) + len(lit) - lit_used
         if total > fh.block_size:
             raise ZxcError(ERROR_OVERFLOW, "decoded size exceeds capacity")
+        if not isinstance(lit, DeferredSection):
+            lit = np.ascontiguousarray(lit)
         return (ll.astype(np.int32), ml.astype(np.int32),
-                off.astype(np.int32), np.ascontiguousarray(lit), total)
+                off.astype(np.int32), lit, total)
 
     if len(spans) > 3:
         with ThreadPoolExecutor(min(os.cpu_count() or 1, 8)) as ex:
@@ -214,7 +234,13 @@ def resolve_serial(plan: FramePlan, workers: int | None = None,
     ``self_ref``: v25's plans (``serial.decode_blocks_v25``), resolved as
     ``tools/tpu_v25_selfref.py`` resolves them: a match whose source
     completes before its destination's 16 KiB supertile is one KOUT piece
-    in output coordinates."""
+    in output coordinates. A plan with deferred sections raises
+    ValueError: the resolver needs literal bytes."""
+    if plan.deferred:
+        raise ValueError("resolve_serial: the plan keeps entropy sections "
+                         "as wire bytes (defer_entropy); they decode "
+                         "through the chase route")
+
     def one(i):
         return runtime.resolve_pieces(plan.ll[i], plan.ml[i], plan.off[i],
                                       plan.lit[i], plan.dict_buf,
@@ -235,7 +261,9 @@ def _pow2(n: int, lo: int = 8) -> int:
 def _pad_batch(plan: FramePlan, idx: range, S: int, L: int,
                B: int | None = None):
     """Stack blocks idx into fixed (B, S)/(B, L) arrays (host numpy). Rows
-    past len(idx) are empty blocks (n_seq=0, lit_len=0)."""
+    past len(idx) are empty blocks (n_seq=0, lit_len=0). A deferred
+    section's row stays zero with its symbol count as lit_len: the device
+    entropy decode fills it (``decode_plan_device``)."""
     if B is None:
         B = len(idx)
     ll = np.zeros((B, S), np.int32)
@@ -250,7 +278,8 @@ def _pad_batch(plan: FramePlan, idx: range, S: int, L: int,
         ll[j, :s] = plan.ll[i]
         ml[j, :s] = plan.ml[i]
         off[j, :s] = plan.off[i]
-        lit[j, :n] = plan.lit[i]
+        if not isinstance(plan.lit[i], DeferredSection):
+            lit[j, :n] = plan.lit[i]
         n_seq[j] = s
         lit_len[j] = n
     return ll, ml, off, lit, n_seq, lit_len
@@ -323,7 +352,10 @@ def decode_plan_device(plan: FramePlan, batch: int = DEFAULT_BATCH,
     piece-plan route when every block has pieces, else the chase route
     (``expand.expand_kernel``), whose error bits raise ZxcError and whose
     totals must equal the plan's. ``device``: None means cuda (raises
-    without it); "cpu" runs the same tensor ops on the CPU."""
+    without it); "cpu" runs the same tensor ops on the CPU. A batch with
+    deferred sections decodes them first (``_route_deferred``); then
+    ``_phases`` also gets ``entropy`` seconds and ``entropy_sections`` /
+    ``entropy_symbols`` counts."""
     dev = _device(device, "decode_plan_device")
     nb = plan.n_blocks
     if nb == 0:
@@ -344,8 +376,15 @@ def decode_plan_device(plan: FramePlan, batch: int = DEFAULT_BATCH,
         idx = range(base, min(base + Bsz, nb))
         host = _pad_batch(plan, idx, S, L, B=Bsz)
         t0 = _add(_phases, "pad", t0)
-        out, total, err = kern(*(torch.from_numpy(a).to(dev) for a in host),
-                               *dict_args)
+        args = [torch.from_numpy(a).to(dev) for a in host]
+        rows = [j for j, i in enumerate(idx)
+                if isinstance(plan.lit[i], DeferredSection)]
+        if rows:
+            t0 = _add(_phases, "device", t0)
+            _route_deferred([plan.lit[idx[j]] for j in rows], rows, args[3],
+                            _phases)
+            t0 = time.perf_counter()
+        out, total, err = kern(*args, *dict_args)
         err_np = err.cpu().numpy()[:len(idx)]
         total_np = total.cpu().numpy()[:len(idx)]
         out_np = out.cpu().numpy()
@@ -357,6 +396,46 @@ def decode_plan_device(plan: FramePlan, batch: int = DEFAULT_BATCH,
             raise ZxcError(ERROR_CORRUPT_DATA, "device/plan size disagreement")
         out_parts += [out_np[j, :plan.totals[i]] for j, i in enumerate(idx)]
     return np.concatenate(out_parts).tobytes() if out_parts else b""
+
+
+def _route_deferred(secs: list, rows: list, lit: torch.Tensor,
+                    ph: dict | None) -> None:
+    """The device entropy decode of one batch: the deferred sections
+    ``secs`` planned and padded at the batch's L (host), shipped as wire
+    bytes and routed on ``lit``'s device, their symbols written into rows
+    ``rows`` of the device literal tensor ``lit`` (JAX: ``.at[rows].set``
+    after the H2D of the zero rows). ``ph`` gets ``entropy`` seconds
+    (planning, H2D and routing, synchronised) and the section and symbol
+    counts."""
+    t0 = time.perf_counter()
+    L = lit.shape[1]
+    plans = [pivco_device.plan_section(s.payload, s.n, s.tree) for s in secs]
+    args, _, _, _, rounds = pivco_device.pad_plans(
+        [s.payload for s in secs], plans, L=L)
+    dec = pivco_device.route_padded(args, L, rounds, lit.device)
+    lit.index_copy_(0, torch.tensor(rows, device=lit.device), dec)
+    if lit.is_cuda:
+        torch.cuda.synchronize(lit.device)
+    _add(ph, "entropy", t0)
+    if ph is not None:
+        ph["entropy_sections"] = ph.get("entropy_sections", 0) + len(secs)
+        ph["entropy_symbols"] = (ph.get("entropy_symbols", 0)
+                                 + sum(s.n for s in secs))
+
+
+def _record(col: profiling.Phases, ph: dict, resolved: bool) -> None:
+    """One decode's seconds into the active phase collector under the JAX
+    package's names: ``plan``, ``resolve`` (where a resolver ran) and
+    ``device``, which in JAX spans the padding, so it holds the port's
+    ``pad`` or ``pack``, ``entropy`` and ``device`` seconds."""
+    secs = {"plan": ph["plan"],
+            "device": sum(ph.get(k, 0.0)
+                          for k in ("pad", "pack", "entropy", "device"))}
+    if resolved:
+        secs["resolve"] = ph["resolve"]
+    for k, v in secs.items():
+        col.seconds[k] = col.seconds.get(k, 0.0) + v
+        col.counts[k] = col.counts.get(k, 0) + 1
 
 
 def _decode_serial(plan: FramePlan, pieces, lits, variant: int,
@@ -392,14 +471,19 @@ def decompress(archive: bytes, opts: DecodeOpts | None = None,
     blocks a device batch of the pieces and chase routes. ``use_serial``
     with ``variant`` 19 (v13 still serves blocks under 16 KiB), 13, or the
     attic's 1, 2 or 3; ``dispatch``: blocks a launch of the serial route.
+    ``device_entropy``: the PivCo literal sections decode on the device
+    from their wire bytes (``pivco_device``); it forces the chase route
+    (``use_pieces`` and ``use_serial`` off), as in the JAX package.
     ``_phases``, when given, receives wall seconds ``plan`` (section
     parse), ``resolve`` (pieces), ``pad`` (batches; pieces and chase) or
-    ``pack`` (control; serial), ``device`` (H2D, device work, readback)
-    and ``total``, and ``route``: ``pieces``, ``chase`` or ``serial``."""
+    ``pack`` (control; serial), ``entropy`` (the device entropy decode,
+    with counts ``entropy_sections`` and ``entropy_symbols``), ``device``
+    (H2D, device work, readback) and ``total``, and ``route``:
+    ``pieces``, ``chase`` or ``serial``. Inside
+    ``profiling.collect_phases()`` the decode also records ``plan``,
+    ``resolve`` and ``device`` there, as the JAX package's does."""
     if device_entropy:
-        raise NotImplementedError(
-            "device_entropy=True runs the device entropy decode "
-            "(ops/pivco_device.py), ROADMAP queue 1 item 5")
+        use_pieces = use_serial = False
     if use_serial and variant not in (13, 19, *attic.VARIANTS):
         raise NotImplementedError(
             f"serial variant {variant} has no ops.decompress route, as in "
@@ -408,7 +492,7 @@ def decompress(archive: bytes, opts: DecodeOpts | None = None,
     dev = _device(device, "ops.decompress")
     ph: dict = {}
     t_start = t0 = time.perf_counter()
-    plan = plan_frame(archive, opts)
+    plan = plan_frame(archive, opts, defer_entropy=device_entropy)
     t0 = _add(ph, "plan", t0)
     out = None
     if use_serial and plan.n_blocks:
@@ -429,4 +513,7 @@ def decompress(archive: bytes, opts: DecodeOpts | None = None,
     _add(ph, "total", t_start)
     if _phases is not None:
         _phases.update(ph)
+    col = profiling.phases()
+    if col is not None:
+        _record(col, ph, use_serial or use_pieces)
     return out
