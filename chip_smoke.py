@@ -106,7 +106,20 @@ Phases, in order; any failure exits non-zero before the result line:
    decode, one hint decode, one default-route decode at 512 KiB, the
    chase route and the device entropy route at 512 KiB (which must show
    device time) and one device encode (torch.profiler);
-5. corruption must raise ZxcError: a flipped payload byte with checksums
+5. the command line (``zxc_tpu_torch.cli.main`` in process, on the
+   corpus in a scratch directory, every launch counter set to 0 before
+   each command and read after it): ``-z -3 -k --device -B 64K --hints``
+   (its archive equal to ``ops.compress_device(data, 3, 65536,
+   checksum=True)``'s, lcp and parse_walk once per group), ``-d --device
+   --hints -o`` (v27 once per group, output equal to the corpus), ``-t
+   --device`` and ``-d --device -D`` (the default route, no hand-written
+   kernel), ``-l -j``, ``--train`` on the first 1 MiB in 64 KiB samples
+   and ``-z -D`` with its dictionary, and ``-b 1 --device -j``, each wall
+   beside the library call it wraps (command, call, call, command: the
+   best of each pair); then ``python3 -m zxc_tpu_torch -d
+   --device --hints -c`` in a subprocess, whose stdout must equal the
+   corpus;
+6. corruption must raise ZxcError: a flipped payload byte with checksums
    on and a truncated archive (cold path, default route, serial route and
    device entropy route), a hint of another archive, a truncated hint and
    a hint whose qbase carries the (1<<24)|64 flip.
@@ -803,6 +816,148 @@ def flipped_qbase_hint(H, path: str, out_path: str) -> None:
         fo.write(H._HDR.pack(*f) + comp)
 
 
+CLI_TRAIN_BYTES = 1 << 20     # --train samples: the corpus's first 1 MiB
+CLI_SAMPLE = 64 << 10         # in samples of 64 KiB
+
+
+def cli_phase(Z, EK, data: bytes, out_dir: str, n_groups: int) -> None:
+    """The command line (``zxc_tpu_torch.cli.main``, in process) on the
+    corpus in a scratch directory, every launch counter set to 0 before
+    each command and read after it: each command must exit 0 and launch
+    what its path launches, its outputs must equal the corpus, and its
+    wall stands beside the wall of the library call it wraps (command,
+    call, call, command; the best of each). Then one ``python3 -m zxc_tpu_torch -d --device --hints
+    -c`` in a subprocess, whose stdout must equal the corpus."""
+    import contextlib
+    import io
+    from zxc_tpu_torch import cli
+    d = tempfile.mkdtemp(prefix="cli-", dir=out_dir)
+    src = os.path.join(d, "corpus.bin")
+    with open(src, "wb") as f:
+        f.write(data)
+    arc_path, hint_path = src + ".zxc", src + ".zxc.zxh"
+
+    def read(path: str) -> bytes:
+        with open(path, "rb") as f:
+            return f.read()
+
+    def command(label, argv, want=None, library=None, nbytes=len(data)):
+        """Runs ``argv``, which must exit 0; ``want`` maps kernel to
+        launches (others 0), read around each run. With ``library``, the
+        call the command wraps, the order is command, call, call, command
+        (the command's outputs forced) and the best of each pair stands;
+        rates are of ``nbytes`` (None: no rate). Returns the command's
+        stdout."""
+        def run() -> tuple[float, str]:
+            zero_counts()
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                rc = cli.main(argv)
+            wall = time.perf_counter() - t0
+            counts = read_counts()
+            check(rc == 0, f"cli {label}: exit code {rc}")
+            expect = {k: (want or {}).get(k, 0) for k in counts}
+            check(counts == expect, f"cli {label}: launches {counts}, "
+                  f"expected {expect}")
+            return wall, buf.getvalue()
+
+        def timed(fn) -> float:
+            t0 = time.perf_counter()
+            fn()
+            return time.perf_counter() - t0
+
+        def rate(t: float) -> str:
+            return f" = {nbytes / 1e9 / t:.4f} GB/s" if nbytes else ""
+
+        wall, out = run()
+        walls, lib = [wall], ""
+        if library is not None:
+            name, fn = library
+            libs = [timed(fn), timed(fn)]
+            walls.append(run()[0])
+            lib = (f"; library call {name} best {min(libs):.4f} s"
+                   f"{rate(min(libs))} (runs "
+                   + ", ".join(f"{t:.4f}" for t in libs) + ")")
+        print(f"cli {label}: wall best {min(walls):.4f} s{rate(min(walls))}"
+              " (runs " + ", ".join(f"{t:.4f}" for t in walls) + "), "
+              f"launches { {k: v for k, v in (want or {}).items() if v} }"
+              + lib, flush=True)
+        return out
+
+    arc_lib = {}
+    command("-z -3 -k --device -B 64K --hints",
+            ["-z", "-3", "-k", "-f", "-q", "--device", "-B", "64K", "--hints",
+             src],
+            {k: n_groups for k in EK.KERNELS},
+            ("compress_device(checksum=True) + write_hints", lambda: arc_lib
+             .update(arc=Z.ops.compress_device(data, 3, BLOCK, checksum=True),
+                     hint=Z.write_hints(read(arc_path),
+                                        os.path.join(d, "lib.zxh")))))
+    arc = read(arc_path)
+    check(arc == arc_lib["arc"], "cli -z --device: the archive differs from "
+          "ops.compress_device(data, 3, 65536, checksum=True)'s")
+    check(os.path.exists(hint_path), "cli -z --hints wrote no .zxh")
+    out = os.path.join(d, "corpus.out")
+    command("-d --device --hints -o",
+            ["-d", "-k", "-f", "-q", "--device", "--hints", "-o", out,
+             arc_path],
+            {27: n_groups},
+            ("decompress_e2e(hint=)", lambda: Z.decompress_e2e(
+                arc, Z.DecodeOpts(checksum=True), hint=hint_path)))
+    check(read(out) == data, "cli -d --device --hints: output differs from "
+          "the corpus")
+    command("-t --device", ["-t", "-q", "--device", arc_path], None,
+            ("ops.decompress(checksum)", lambda: Z.ops.decompress(
+                arc, Z.DecodeOpts(checksum=True))))
+    row = json.loads(command("-l -j", ["-l", "-j", arc_path], nbytes=None))
+    check(row["blocks"] == len(data) // BLOCK and row["decompressed"]
+          == len(data) and row["block_size"] == BLOCK and row["checksums"],
+          f"cli -l -j: {row}")
+    samples = []
+    for i in range(CLI_TRAIN_BYTES // CLI_SAMPLE):
+        samples.append(os.path.join(d, f"sample{i:02d}.bin"))
+        with open(samples[-1], "wb") as f:
+            f.write(data[i * CLI_SAMPLE:(i + 1) * CLI_SAMPLE])
+    zxd = os.path.join(d, "corpus.zxd")
+    command("--train", ["--train", "-q", "-f", "-o", zxd, *samples], None,
+            ("dict_train", lambda: Z.dict_train(
+                [read(p) for p in samples], 16384)), CLI_TRAIN_BYTES)
+    dict_arc = os.path.join(d, "dict.zxc")
+    command("-z -D", ["-z", "-k", "-q", "-D", zxd, "-o", dict_arc, src])
+    dict_out = os.path.join(d, "dict.out")
+    dct = Z.Dictionary.load(read(zxd))
+    command("-d --device -D", ["-d", "-k", "-f", "-q", "--device", "-D", zxd,
+                               "-o", dict_out, dict_arc], None,
+            ("ops.decompress(dictionary)", lambda: Z.ops.decompress(
+                read(dict_arc), Z.DecodeOpts(
+                    checksum=True, dict_content=dct.content,
+                    dict_huf=dct.huf_lengths))))
+    check(read(dict_out) == data, "cli -d --device -D: output differs from "
+          "the corpus")
+    bench = json.loads(command("-b 1 --device -j",
+                               ["-b", "1", "--device", "-j", src],
+                               nbytes=None))
+    check(bench["size"] == len(data) and bench["decompress_mbps"] > 0,
+          f"cli -b --device: {bench}")
+    print(f"cli -b 1 --device -j: {bench}", flush=True)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [ROOT] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "zxc_tpu_torch", "-d",
+                        "--device", "--hints", "-c", arc_path],
+                       capture_output=True, env=env, cwd=d, timeout=300)
+    wall = time.perf_counter() - t0
+    check(r.returncode == 0, f"python3 -m zxc_tpu_torch -d --device --hints "
+          f"-c: exit code {r.returncode}: {r.stderr.decode()[-2000:]}")
+    check(r.stdout == data, "python3 -m zxc_tpu_torch -d --device --hints "
+          "-c: stdout differs from the corpus")
+    print(f"cli python3 -m zxc_tpu_torch -d --device --hints -c: wall "
+          f"{wall:.4f} s with the interpreter's start, stdout equals the "
+          "corpus", flush=True)
+    shutil.rmtree(d, True)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("CUDA is not available: this smoke run needs an NVIDIA card")
@@ -1319,7 +1474,10 @@ def main() -> None:
           f"{len(events)} events, {on_card} on the card "
           f"({os.path.getsize(trace_path)} bytes)", flush=True)
 
-    # -- 5. corruption -------------------------------------------------------
+    # -- 5. the command line ------------------------------------------------
+    cli_phase(Z, EK, data, out_dir, n_groups)
+
+    # -- 6. corruption -------------------------------------------------------
     small = Z.compress(data[:4 * BLOCK], Z.EncodeOpts(
         level=3, block_size=BLOCK, checksum=True))
     bad = bytearray(small)

@@ -29,7 +29,9 @@ hand-written kernel),
 (``pivco_device.route_sections`` on levels 3 and 7 sections, and
 ``ops.decompress(device_entropy=True)`` at 16, 64 and 512 KiB blocks,
 kernel-free, with its corruption refusals), ``Dctx(device=True)``,
-``entry.entry()`` and the device encode against the CPU path. They need an NVIDIA card with
+``entry.entry()``, the device encode against the CPU path, and the
+command line's ``-z --device --hints`` and ``-d --device --hints`` with
+their launches. They need an NVIDIA card with
 nvcc, are marked ``cuda`` and skip without one. On the card:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
@@ -663,6 +665,37 @@ def test_compress_device_on_card_equals_cpu(card, level):
     assert arc == Z.ops.compress_device(data, level=level, block_size=65536,
                                         device="cpu")
     assert Z.codec.frame.decompress(arc) == data
+
+
+def test_cli_device_hints_on_card(card, tmp_path, monkeypatch):
+    """The command line on the card: ``-z --device -B 64K --hints`` runs
+    lcp and parse_walk once per group of 16 full blocks and once for the
+    tail block, and writes the archive ``compress_device`` makes; ``-d
+    --device --hints`` decodes it through the hint it wrote, v27 once per
+    dispatch group of 16 blocks."""
+    from zxc_tpu_torch import cli
+    from zxc_tpu_torch.ops import encode_kernels as EK
+    data = (_card_corpus(3) * 5)[:(2 << 20) + 1000]
+    (tmp_path / "d.bin").write_bytes(data)
+    monkeypatch.chdir(tmp_path)
+    before = (EK.lcp.launches, EK.parse_walk.launches)
+    assert cli.main(["-z", "-k", "-q", "--device", "-B", "64K", "--hints",
+                     "d.bin"]) == 0
+    groups = -(-(len(data) // 65536) // 16) + (len(data) % 65536 > 0)
+    assert (EK.lcp.launches - before[0],
+            EK.parse_walk.launches - before[1]) == (groups, groups)
+    arc = (tmp_path / "d.bin.zxc").read_bytes()
+    assert arc == Z.ops.compress_device(data, level=3, block_size=65536,
+                                        checksum=True)
+    assert (tmp_path / "d.bin.zxc.zxh").exists()
+    before = CE.v27.launches
+    assert cli.main(["-d", "-q", "--device", "--hints", "-o", "d.out",
+                     "d.bin.zxc"]) == 0
+    assert CE.v27.launches - before == -(-(-(-len(data) // 65536)) // 16)
+    assert (tmp_path / "d.out").read_bytes() == data
+    before = CE.v27.launches
+    assert cli.main(["-t", "--device", "-q", "d.bin.zxc"]) == 0
+    assert CE.v27.launches == before       # -t takes the expansion route
 
 
 def random_pieces(seed: int, B: int, block: int, garbage: bool):

@@ -38,7 +38,16 @@ def test_import_leaves_jax_and_zxc_tpu_out():
             "zxc_tpu_torch.ops.probes, zxc_tpu_torch.codec.seekable, "
             "zxc_tpu_torch.gather_ab, zxc_tpu_torch.ops.pivco_device, "
             "zxc_tpu_torch.context, zxc_tpu_torch.profiling, "
-            "zxc_tpu_torch.entry\n"
+            "zxc_tpu_torch.entry, zxc_tpu_torch.cli, "
+            "zxc_tpu_torch.codec.dict_train\n"
+            "import runpy, contextlib, io\n"
+            "sys.argv = ['zxc', '-V']\n"
+            "with contextlib.redirect_stdout(io.StringIO()):\n"
+            "    try:\n"
+            "        runpy.run_module('zxc_tpu_torch.__main__', "
+            "run_name='__main__')\n"
+            "    except SystemExit:\n"
+            "        pass\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'jaxlib')) or m == 'zxc_tpu' "
             "or m.startswith('zxc_tpu.'))\n"

@@ -14,10 +14,16 @@ device_entropy=True)`` also decodes the PivCo literal sections on the
 device (``ops.pivco_device``). ``profiling`` collects ``ops.decompress``'s
 phases (``collect_phases``) and records ``torch.profiler`` traces
 (``trace``); ``entry.entry()`` is a compile-and-run check of the batched
-expansion.
+expansion. ``Dictionary`` reads and writes ``.zxd`` dictionaries and
+``dict_train`` trains one (native trainer).
+
+The command line is ``python -m zxc_tpu_torch`` (``cli``), the JAX
+package's ``zxc`` CLI with ``--device`` on the card.
 """
 from .errors import ZxcError  # noqa: F401
 from .codec.frame import DecodeOpts, EncodeOpts, compress  # noqa: F401
+from .format.dictionary import Dictionary  # noqa: F401
+from .codec.dict_train import dict_train  # noqa: F401
 from .ops.device_pipeline import decompress_e2e  # noqa: F401
 from .ops.hints import write_hints, HintFile  # noqa: F401
 from . import ops  # noqa: F401

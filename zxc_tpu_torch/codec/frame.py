@@ -7,6 +7,8 @@ argument). ``compress`` is the native frame encoder only
 (``zxch_compress_frame``, byte-identical to ``zxc_tpu.codec.frame.compress``)
 and ``decompress`` the native frame decoder only (``zxch_decompress_frame``);
 without the native library both raise — the port has no Python codec.
+``iter_blocks``, ``get_decompressed_size`` and ``get_dict_id`` read the
+frame's structure, as the JAX package's do.
 """
 from __future__ import annotations
 
@@ -18,7 +20,7 @@ from .. import constants as C
 from ..errors import (ZxcError, ERROR_BAD_BLOCK_SIZE, ERROR_DICT_TOO_LARGE,
                       ERROR_SRC_TOO_SMALL, ERROR_DICT_REQUIRED,
                       ERROR_DICT_MISMATCH, ERROR_DST_TOO_SMALL,
-                      ERROR_CORRUPT_DATA)
+                      ERROR_CORRUPT_DATA, ERROR_BAD_HEADER)
 from ..format import headers
 from ..format.dictionary import dict_id as compute_dict_id
 from .. import runtime
@@ -102,6 +104,32 @@ def compress(data: bytes, opts: EncodeOpts | None = None) -> bytes:
         threads=opts.threads)
 
 
+def iter_blocks(archive: bytes):
+    """Yield (pos, BlockHeader) for each data block; stops at EOF.
+
+    ``pos`` is the offset of the 8-byte block header. Raises on corrupt
+    headers or a missing EOF block.
+    """
+    fh = headers.read_file_header(archive)
+    pos = C.FILE_HEADER_SIZE
+    while True:
+        if pos + C.BLOCK_HEADER_SIZE > len(archive):
+            raise ZxcError(ERROR_SRC_TOO_SMALL, "missing EOF block")
+        bh = headers.read_block_header(archive, pos)
+        if bh.block_type == C.BLOCK_EOF:
+            if bh.comp_size != 0:
+                raise ZxcError(ERROR_BAD_HEADER, "EOF with non-zero comp_size")
+            return
+        yield pos, bh
+        pos += C.BLOCK_HEADER_SIZE + bh.comp_size + \
+            (C.BLOCK_CHECKSUM_SIZE if fh.has_checksum else 0)
+
+
+def get_dict_id(archive: bytes) -> int:
+    """The dictionary id the file header names (0: none)."""
+    return headers.read_file_header(archive).dict_id
+
+
 def get_decompressed_size(archive: bytes) -> int:
     """Footer-derived size, after the file header's checks
     (zxc_get_decompressed_size)."""
@@ -133,11 +161,13 @@ def decompress(archive: bytes, opts: DecodeOpts | None = None, *,
         if provided_id != fh.dict_id:
             raise ZxcError(ERROR_DICT_MISMATCH)
     src = np.frombuffer(archive, np.uint8)
-    dsize = headers.read_file_footer(archive)[0]
-    # every block header takes 8 bytes, so a footer claiming more than
-    # that many blocks' worth of output lies (and must not size a buffer)
-    if dsize > len(src) // C.BLOCK_HEADER_SIZE * fh.block_size:
-        raise ZxcError(ERROR_SRC_TOO_SMALL, "footer size exceeds the frame")
+    # the walk first, as the JAX package's native decode does (the same
+    # codes on a malformed frame): the block count bounds the output, so
+    # a footer that lies about the size cannot size the buffer
+    n_blocks = len(runtime.walk_frame(src, fh.has_checksum,
+                                      fh.block_size)[0])
+    dsize = min(headers.read_file_footer(archive)[0],
+                n_blocks * fh.block_size)
     dst = np.empty(dsize, np.uint8) if out is None else out
     if dst.nbytes < dsize:
         raise ZxcError(ERROR_DST_TOO_SMALL,

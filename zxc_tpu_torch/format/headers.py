@@ -1,7 +1,7 @@
-"""File header, block header, GLO/GHI sub-header and footer (FORMAT.md
-sections 3-5 and 8), the port's copy of the readers and writers in
-``zxc_tpu.format.headers`` (reference writers and parser:
-zxc_common.c:546-720)."""
+"""File header, block header, GLO/GHI sub-header, seek table and footer
+(FORMAT.md sections 3-5, 5.5 and 8), the port's copy of the readers and
+writers in ``zxc_tpu.format.headers`` (reference writers and parsers:
+zxc_common.c:546-720, zxc_seekable.c:172-411)."""
 from __future__ import annotations
 
 import struct
@@ -129,3 +129,32 @@ def read_gnr_header(payload: bytes, n_sections: int
         packed, = struct.unpack_from("<Q", payload, C.GNR_HEADER_SIZE + 8 * k)
         descs.append((packed & 0xFFFFFFFF, packed >> 32))
     return gh, descs
+
+
+def write_seek_table(comp_sizes: list[int]) -> bytes:
+    """The SEK block: a block header and one uint32 compressed size a
+    block."""
+    body = struct.pack(f"<{len(comp_sizes)}I", *comp_sizes)
+    return write_block_header(C.BLOCK_SEK, len(body)) + body
+
+
+def parse_seek_table(archive: bytes) -> list[int] | None:
+    """Backward SEK detection per FORMAT.md section 5.5; None when the
+    archive has no seek table."""
+    hdr = read_file_header(archive)
+    dsize, _ = read_file_footer(archive)
+    n = (dsize + hdr.block_size - 1) // hdr.block_size
+    if n == 0:
+        return None
+    sek_size = C.BLOCK_HEADER_SIZE + n * C.SEEK_ENTRY_SIZE
+    start = len(archive) - C.FILE_FOOTER_SIZE - sek_size
+    if start < C.FILE_HEADER_SIZE:
+        return None
+    try:
+        bh = read_block_header(archive, start)
+    except ZxcError:
+        return None
+    if bh.block_type != C.BLOCK_SEK or bh.comp_size != n * C.SEEK_ENTRY_SIZE:
+        return None
+    off = start + C.BLOCK_HEADER_SIZE
+    return list(struct.unpack_from(f"<{n}I", archive, off))

@@ -26,7 +26,6 @@ prep buffers are byte-identical to the JAX package's.
 from __future__ import annotations
 
 import contextlib
-import ctypes
 import functools
 import os
 import threading
@@ -86,21 +85,12 @@ def walk_frame(archive: bytes, opts: DecodeOpts | None = None) -> FrameWalk:
         if provided_id != fh.dict_id:
             raise ZxcError(ERROR_DICT_MISMATCH)
 
+    pos, typ, comp = runtime.walk_frame(src, fh.has_checksum,
+                                        fh.block_size)
     L = runtime.lib()
-    max_blocks = len(src) // 8 + 2
-    pos = np.empty(max_blocks, np.uint64)
-    typ = np.empty(max_blocks, np.uint8)
-    comp = np.empty(max_blocks, np.uint64)
-    eof = ctypes.c_uint64(0)
     P = runtime._ptr
-    nb = L.zxch_walk_frame(P(src), len(src), 1 if fh.has_checksum else 0,
-                           C.compress_block_bound(fh.block_size),
-                           C.FILE_HEADER_SIZE, P(pos), P(typ), P(comp),
-                           max_blocks, ctypes.byref(eof))
-    if nb < 0:
-        raise ZxcError(int(nb), "frame walk")
-    nb = int(nb)
-    pos, typ, comp = pos[:nb] + 8, typ[:nb], comp[:nb]  # -> payload offsets
+    nb = len(pos)
+    pos = pos + 8                                     # -> payload offsets
 
     stored_size, stored_hash = headers.read_file_footer(archive)
     verify = bool(opts and opts.checksum) and fh.has_checksum

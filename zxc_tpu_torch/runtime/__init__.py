@@ -10,9 +10,9 @@ form (``*_prep_block_plan``), the hint replay of the literal window
 (RLE literals, varint extras, PivCo entropy), the piece resolver and
 the lane-op and window-op splitters, the host block decoder
 (``Seekable``), the host frame decoder (the hint body is itself a
-frame), rapidhash64, the native frame encoder, and the section emitters
+frame), rapidhash64, the native frame encoder, the section emitters
 of the device encoder's host half (PivCo encode, RLE literals and
-package-merge code lengths).
+package-merge code lengths), and the dictionary trainer.
 
 Unlike ``zxc_tpu.runtime`` there is no pure-Python fallback: the port's
 decode path has no Python prep, so a library that cannot be built or
@@ -26,8 +26,10 @@ import threading
 
 import numpy as np
 
+from .. import constants as C
 from ..buildlib import build_shared
-from ..errors import ZxcError, ERROR_BAD_OFFSET, ERROR_CORRUPT_DATA
+from ..errors import (ZxcError, ERROR_BAD_OFFSET, ERROR_CORRUPT_DATA,
+                      ERROR_NULL_INPUT)
 
 _SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "zxc_host.cpp")
 
@@ -115,6 +117,8 @@ def _bind(L: ctypes.CDLL) -> None:
     L.zxch_rle_encode_lit.argtypes = [vp, u64, vp, u64]
     L.zxch_code_lengths.restype = ci
     L.zxch_code_lengths.argtypes = [vp, ci, vp]
+    L.zxch_dict_train.restype = i64
+    L.zxch_dict_train.argtypes = [vp, vp, ci, u64, vp, u64]
 
 
 def lib() -> ctypes.CDLL:
@@ -407,6 +411,27 @@ def v19_lit8_load_batch(src: np.ndarray, pos: np.ndarray, comp: np.ndarray,
         None if zrows is None else _ptr(zrows)))
 
 
+def walk_frame(src: np.ndarray, has_checksum: bool, block_size: int):
+    """The frame's data blocks, walked by their headers from the file
+    header to EOF (``zxch_walk_frame``): (pos, typ, comp), the offset of
+    each block header (uint64), its type (uint8) and its payload size
+    (uint64). Raises ZxcError with the walk's code on a malformed frame."""
+    L = lib()
+    max_blocks = len(src) // 8 + 2
+    pos = np.empty(max_blocks, np.uint64)
+    typ = np.empty(max_blocks, np.uint8)
+    comp = np.empty(max_blocks, np.uint64)
+    eof = ctypes.c_uint64(0)
+    nb = L.zxch_walk_frame(_ptr(src), len(src), 1 if has_checksum else 0,
+                           C.compress_block_bound(block_size),
+                           C.FILE_HEADER_SIZE, _ptr(pos), _ptr(typ),
+                           _ptr(comp), max_blocks, ctypes.byref(eof))
+    if nb < 0:
+        raise ZxcError(int(nb), "frame walk")
+    nb = int(nb)
+    return pos[:nb], typ[:nb], comp[:nb]
+
+
 def decompress_frame(src: np.ndarray, block_size: int, has_checksum: bool,
                      verify: bool, out: np.ndarray,
                      dict_buf: np.ndarray | None = None,
@@ -522,6 +547,25 @@ def code_lengths(freq: np.ndarray, max_len: int) -> np.ndarray | None:
     if L.zxch_code_lengths(_ptr(f), max_len, _ptr(cl)) < 0:
         return None
     return cl
+
+
+def dict_train(samples: list[bytes], target_size: int = 16384) -> bytes:
+    """Native one-shot dictionary trainer (``zxch_dict_train``): the
+    serialized ``.zxd`` (header, content, 128-byte shared table). Raises
+    ZxcError with the trainer's code, or NULL_INPUT without samples."""
+    if not samples:
+        raise ZxcError(ERROR_NULL_INPUT, "no samples")
+    L = lib()
+    flat = b"".join(samples)
+    sizes = np.array([len(s) for s in samples], np.uint64)
+    cap = 16 + 65536 + 128
+    out = ctypes.create_string_buffer(cap)
+    rc = L.zxch_dict_train(ctypes.c_char_p(flat), _ptr(sizes), len(samples),
+                           target_size, ctypes.cast(out, ctypes.c_void_p),
+                           cap)
+    if rc < 0:
+        raise ZxcError(int(rc), "native dict train")
+    return out.raw[:int(rc)]
 
 
 def pivco_decode(payload: np.ndarray, n: int,
