@@ -119,7 +119,22 @@ Phases, in order; any failure exits non-zero before the result line:
    best of each pair); then ``python3 -m zxc_tpu_torch -d
    --device --hints -c`` in a subprocess, whose stdout must equal the
    corpus;
-6. corruption must raise ZxcError: a flipped payload byte with checksums
+6. the sharded path (``parallel``): in process over an NCCL group of one
+   rank, ``decode_plan_sharded`` (its plan included) on the 64 KiB and
+   512 KiB archives beside ``ops.decompress``'s default route and its
+   chase route, interleaved, best of 3; ``decode_plan_dp_sp`` on a
+   (1, 1) mesh at 64 KiB; ``compress_sharded`` of the corpus less 99
+   bytes at level 3, 64 KiB blocks, checksums on (the tail block through
+   ``lcp`` and ``parse_walk``, once each), decoded back by the native
+   decoder; every decode equal to the corpus, launching no hand-written
+   kernel; a truncated archive and a tampered plan raise ZxcError. Then
+   two gloo ranks sharing the card (``parallel.launch``, ``jobs``): the
+   64 KiB archive through ``decode_plan_sharded`` on (2,) and
+   ``decode_plan_dp_sp`` on (1, 2), ``compress_sharded`` of 3 blocks,
+   each rank's bytes equal to the data, and the two corrupt cases
+   raising the same ZxcError on both ranks; ``dryrun_multichip(1)`` over
+   NCCL, and ``dryrun_multichip(2)`` where the machine has two cards;
+7. corruption must raise ZxcError: a flipped payload byte with checksums
    on and a truncated archive (cold path, default route, serial route and
    device entropy route), a hint of another archive, a truncated hint and
    a hint whose qbase carries the (1<<24)|64 flip.
@@ -132,6 +147,7 @@ import atexit
 import hashlib
 import json
 import os
+import pickle
 import shutil
 import statistics
 import subprocess
@@ -198,6 +214,7 @@ ENC_REPLACES = {"lcp": "zxc_tpu/ops/pallas_encode.py:202",
 ENC_LEVEL = 3
 XLA_BLOCK = 128 << 10
 HEAD_BYTES = 4 << 20          # the first 4 MiB
+SHARD_ENC_BYTES = CORPUS_BYTES  # compress_sharded's data, less 99 bytes
 
 
 def fail(msg: str) -> None:
@@ -957,6 +974,193 @@ def cli_phase(Z, EK, data: bytes, out_dir: str, n_groups: int) -> None:
           "corpus", flush=True)
     shutil.rmtree(d, True)
 
+SHARD_TAMPER = [[2, 0, "off", 60_000]]    # an offset past its window
+
+
+def shard_spec(out_dir: str, arc: bytes, data: bytes) -> tuple[str, dict]:
+    """The jobs of the two gloo ranks that share the card
+    (``parallel.jobs.run_jobs``): the 64 KiB archive through
+    ``decode_plan_sharded`` on (2,) and ``decode_plan_dp_sp`` on (1, 2),
+    ``compress_sharded`` of 3 full blocks (2 sharded, 1 on the
+    single-device path) with checksums, and a truncated archive and a
+    tampered plan, which must raise alike on both ranks. Returns the
+    spec's path and the plaintext each job must give."""
+    files = {"arc": arc, "trunc": arc[:len(arc) // 2],
+             "enc": data[:3 * BLOCK]}
+    paths = {}
+    for name, blob in files.items():
+        paths[name] = os.path.join(out_dir, f"shard_{name}.bin")
+        with open(paths[name], "wb") as f:
+            f.write(blob)
+    jobs = [dict(name="dp", op="decode_plan_sharded", archive=paths["arc"],
+                 axes=["dp"], shape=[2]),
+            dict(name="dp_sp", op="decode_plan_dp_sp", archive=paths["arc"],
+                 axes=["dp", "sp"], shape=[1, 2]),
+            dict(name="compress", op="compress_sharded", input=paths["enc"],
+                 block_size=BLOCK, level=ENC_LEVEL, checksum=True,
+                 axes=["dp"], shape=[2]),
+            dict(name="truncated", op="decode_plan_sharded",
+                 archive=paths["trunc"], axes=["dp"], shape=[2]),
+            dict(name="tampered", op="decode_plan_sharded",
+                 archive=paths["arc"], tamper=SHARD_TAMPER, axes=["dp"],
+                 shape=[2])]
+    spec = os.path.join(out_dir, "shard_spec.json")
+    with open(spec, "w") as f:
+        json.dump({"out": out_dir, "device": "cuda", "jobs": jobs}, f)
+    return spec, {"dp": data, "dp_sp": data, "compress": files["enc"]}
+
+
+def sharding_phase(Z, data: bytes, arc: bytes, arc512: bytes,
+                   out_dir: str, smi: str) -> None:
+    """Phase 6: the sharded decode and encode (``parallel``) on the card:
+    in process over an NCCL group of one rank, then on two gloo ranks
+    that share the card (``parallel.launch``), then
+    ``entry.dryrun_multichip`` over NCCL."""
+    import torch.distributed as dist
+    from zxc_tpu_torch import entry, parallel
+    from zxc_tpu_torch.codec import frame
+    from zxc_tpu_torch.parallel import launch
+
+    t_phase = time.perf_counter()
+    dist.init_process_group("nccl", rank=0, world_size=1,
+                            init_method=f"tcp://localhost:"
+                                        f"{launch.free_port()}")
+    mesh = parallel.make_mesh()
+    mesh11 = parallel.make_mesh(axes=("dp", "sp"), shape=(1, 1))
+
+    def timed(fn):
+        zero_counts()
+        ph = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(ph)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, out, ph, read_counts()
+
+    def sharded(a):
+        def fn(ph):
+            t0 = time.perf_counter()
+            plan = Z.ops.plan_frame(a)
+            ph["plan"] = time.perf_counter() - t0
+            return parallel.decode_plan_sharded(plan, mesh, _phases=ph)
+        return fn
+
+    # decode_plan_sharded beside ops.decompress's default route and its
+    # chase route (the same expansion), interleaved, best of 3
+    for label, a in (("64 KiB", arc), ("512 KiB", arc512)):
+        fns = {"decode_plan_sharded": sharded(a),
+               "ops.decompress default": lambda ph, a=a: Z.ops.decompress(
+                   a, device="cuda", _phases=ph),
+               "ops.decompress chase": lambda ph, a=a: Z.ops.decompress(
+                   a, device="cuda", use_pieces=False, _phases=ph)}
+        best = {}
+        for _ in range(3):
+            for name, fn in fns.items():
+                wall, out, ph, counts = timed(fn)
+                check(out == data, f"{name} at {label} differs from the "
+                      "corpus")
+                check(not any(counts.values()),
+                      f"{name} at {label} launched kernels: {counts}")
+                if name not in best or wall < best[name][0]:
+                    best[name] = (wall, ph)
+        for name, (wall, ph) in best.items():
+            print(f"shard world-1 nccl {label}: {name} best of 3 "
+                  f"{wall:.4f} s ({len(data) / wall / 1e9:.3f} GB/s; "
+                  f"{fmt_phases(ph)}); launches 0 [{smi}]", flush=True)
+
+    plan = Z.ops.plan_frame(arc)
+    wall, out, ph, counts = timed(
+        lambda ph: parallel.decode_plan_dp_sp(plan, mesh11, _phases=ph))
+    check(out == data, "decode_plan_dp_sp (1, 1) differs from the corpus")
+    check(not any(counts.values()),
+          f"decode_plan_dp_sp launched kernels: {counts}")
+    print(f"shard world-1 nccl 64 KiB: decode_plan_dp_sp (1, 1) "
+          f"{wall:.4f} s, plan excluded ({fmt_phases(ph)}); launches 0 "
+          f"[{smi}]", flush=True)
+
+    enc_data = data[:SHARD_ENC_BYTES - 99]
+    wall, arc_s, ph, counts = timed(lambda ph: parallel.compress_sharded(
+        enc_data, mesh, ENC_LEVEL, BLOCK, checksum=True, _phases=ph))
+    check(frame.decompress(arc_s, Z.DecodeOpts(checksum=True)) == enc_data,
+          "compress_sharded's archive does not decode to its data")
+    fired = {k: v for k, v in counts.items() if v}
+    check(fired == {"lcp": 1, "parse_walk": 1},
+          f"compress_sharded launches {fired}, not lcp 1 and parse_walk 1")
+    print(f"shard world-1 nccl: compress_sharded of {len(enc_data)} bytes "
+          f"at level {ENC_LEVEL}, 64 KiB blocks, checksums: {wall:.4f} s "
+          f"({len(enc_data) / wall / 1e6:.2f} MB/s; {fmt_phases(ph)}); "
+          f"archive {len(arc_s)} bytes ({len(arc_s) / len(enc_data):.4f}); "
+          f"launches {fired} [{smi}]", flush=True)
+
+    bad = Z.ops.plan_frame(arc)
+    for blk, seq, fld, value in SHARD_TAMPER:
+        getattr(bad, fld)[blk][seq] = value
+    for name, call in (
+            ("truncated archive", lambda: parallel.decode_plan_sharded(
+                Z.ops.plan_frame(arc[:len(arc) // 2]), mesh)),
+            ("tampered plan", lambda: parallel.decode_plan_sharded(
+                bad, mesh))):
+        try:
+            call()
+        except Z.ZxcError as e:
+            print(f"shard world-1 nccl, corrupt ({name}): raised {e}",
+                  flush=True)
+        else:
+            fail(f"sharded decode of a {name} raised nothing")
+    dist.destroy_process_group()
+
+    # two gloo ranks share the card
+    spec, want = shard_spec(out_dir, arc, data)
+    t0 = time.perf_counter()
+    launch.launch("zxc_tpu_torch.parallel.jobs:run_jobs", 2, args=(spec,),
+                  device="cuda", backend="gloo", timeout=300)
+    wall = time.perf_counter() - t0
+    res = {}
+    for name in ("dp", "dp_sp", "compress", "truncated", "tampered"):
+        res[name] = []
+        for r in range(2):
+            with open(os.path.join(out_dir, f"{name}.r{r}.pkl"), "rb") as f:
+                res[name].append(pickle.load(f))
+    for name, plain in want.items():
+        for r, got in enumerate(res[name]):
+            check("ok" in got, f"gloo rank {r} {name}: {got.get('error')}")
+            out = got["ok"]
+            if name == "compress":
+                out = frame.decompress(out, Z.DecodeOpts(checksum=True))
+            check(out == plain, f"gloo rank {r} {name} differs")
+        check(res[name][0]["ok"] == res[name][1]["ok"],
+              f"gloo ranks return different {name} bytes")
+        print(f"shard 2 gloo ranks on one card: {name} "
+              + "; ".join(f"rank {r} {g['wall']:.4f} s "
+                          f"({fmt_phases(g['phases'])}; launches "
+                          f"{g['launches'] or 0})"
+                          for r, g in enumerate(res[name]))
+              + f" [{smi}]", flush=True)
+    for name in ("truncated", "tampered"):
+        errs = [g.get("error") for g in res[name]]
+        check(errs[0] is not None and errs[0][0] == "ZxcError"
+              and errs[0] == errs[1],
+              f"gloo ranks on a {name} plan: {errs}")
+        print(f"shard 2 gloo ranks, corrupt ({name}): both raised "
+              f"{errs[0][2]}", flush=True)
+    print(f"shard 2 gloo ranks: launch wall {wall:.2f} s with the ranks' "
+          "start", flush=True)
+
+    t0 = time.perf_counter()
+    entry.dryrun_multichip(1)
+    print(f"shard dryrun_multichip(1) over NCCL: "
+          f"{time.perf_counter() - t0:.2f} s with the rank's start",
+          flush=True)
+    if torch.cuda.device_count() >= 2:
+        t0 = time.perf_counter()
+        entry.dryrun_multichip(2)
+        print(f"shard dryrun_multichip(2) over NCCL across 2 cards: "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+    else:
+        print("shard dryrun_multichip(2): not run, one card: NCCL across "
+              "cards is not verified here", flush=True)
+    print(f"shard phase: {time.perf_counter() - t_phase:.2f} s", flush=True)
+
 
 def main() -> None:
     if not torch.cuda.is_available():
@@ -1477,7 +1681,10 @@ def main() -> None:
     # -- 5. the command line ------------------------------------------------
     cli_phase(Z, EK, data, out_dir, n_groups)
 
-    # -- 6. corruption -------------------------------------------------------
+    # -- 6. the sharded decode and encode ---------------------------------
+    sharding_phase(Z, data, arc, arc512, out_dir, smi)
+
+    # -- 7. corruption -------------------------------------------------------
     small = Z.compress(data[:4 * BLOCK], Z.EncodeOpts(
         level=3, block_size=BLOCK, checksum=True))
     bad = bytearray(small)

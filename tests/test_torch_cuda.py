@@ -29,9 +29,11 @@ hand-written kernel),
 (``pivco_device.route_sections`` on levels 3 and 7 sections, and
 ``ops.decompress(device_entropy=True)`` at 16, 64 and 512 KiB blocks,
 kernel-free, with its corruption refusals), ``Dctx(device=True)``,
-``entry.entry()``, the device encode against the CPU path, and the
-command line's ``-z --device --hints`` and ``-d --device --hints`` with
-their launches. They need an NVIDIA card with
+``entry.entry()``, the sharded decode (``parallel.decode_plan_sharded``
+and ``decode_plan_dp_sp`` over an NCCL group of one rank) and
+``entry.dryrun_multichip(1)``, the device encode against the CPU path,
+and the command line's ``-z --device --hints`` and ``-d --device
+--hints`` with their launches. They need an NVIDIA card with
 nvcc, are marked ``cuda`` and skip without one. On the card:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
@@ -1629,3 +1631,45 @@ def test_row_gather_refuses_a_bad_geometry_on_card(card):
         P._launch_rows(t127, idx, o127, "b", plan._replace(bulk=True))
     torch.cuda.synchronize()
     assert torch.equal(out, table) and torch.equal(o127, t127)
+
+
+def test_sharded_decode_world1_nccl_on_card(card):
+    """decode_plan_sharded and decode_plan_dp_sp over an NCCL group of one
+    rank on the card, equal to the host decode; a tampered plan raises
+    the expansion's error after the gather."""
+    import torch.distributed as dist
+    from zxc_tpu_torch import parallel
+    from zxc_tpu_torch.codec import frame
+    from zxc_tpu_torch.parallel import launch
+    rng = np.random.default_rng(23)
+    seg = rng.integers(0, 256, 977, dtype=np.uint8).tobytes()
+    data = (seg * 300 + rng.integers(0, 32, 90_000, dtype=np.uint8)
+            .tobytes())[:9 * 16384 - 5]
+    arc = Z.compress(data, Z.EncodeOpts(level=3, block_size=16384))
+    dist.init_process_group("nccl", rank=0, world_size=1,
+                            init_method=f"tcp://localhost:"
+                                        f"{launch.free_port()}")
+    try:
+        mesh = parallel.make_mesh()
+        assert mesh.device_type == "cuda"
+        plan = Z.ops.plan_frame(arc)
+        want = frame.decompress(arc)
+        assert want == data
+        assert parallel.decode_plan_sharded(plan, mesh) == want
+        assert parallel.decode_plan_sharded(plan, mesh, batch=4) == want
+        sp = parallel.make_mesh(axes=("dp", "sp"), shape=(1, 1))
+        assert parallel.decode_plan_dp_sp(plan, sp) == want
+        plan.off[2][0] = 60_000
+        with pytest.raises(Z.ZxcError, match="offset out of window"):
+            parallel.decode_plan_sharded(plan, mesh)
+    finally:
+        dist.destroy_process_group()
+
+
+def test_dryrun_multichip_on_card(card):
+    """One NCCL rank a card; more ranks than cards are refused."""
+    from zxc_tpu_torch import entry
+    entry.dryrun_multichip(1)
+    n = torch.cuda.device_count() + 1
+    with pytest.raises(RuntimeError, match=f"{n} ranks need {n} cards"):
+        entry.dryrun_multichip(n)

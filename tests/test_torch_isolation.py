@@ -39,7 +39,9 @@ def test_import_leaves_jax_and_zxc_tpu_out():
             "zxc_tpu_torch.gather_ab, zxc_tpu_torch.ops.pivco_device, "
             "zxc_tpu_torch.context, zxc_tpu_torch.profiling, "
             "zxc_tpu_torch.entry, zxc_tpu_torch.cli, "
-            "zxc_tpu_torch.codec.dict_train\n"
+            "zxc_tpu_torch.codec.dict_train, zxc_tpu_torch.parallel, "
+            "zxc_tpu_torch.parallel.launch, zxc_tpu_torch.parallel.jobs, "
+            "zxc_tpu_torch.parallel.sharding\n"
             "import runpy, contextlib, io\n"
             "sys.argv = ['zxc', '-V']\n"
             "with contextlib.redirect_stdout(io.StringIO()):\n"

@@ -17,6 +17,13 @@ phases (``collect_phases``) and records ``torch.profiler`` traces
 expansion. ``Dictionary`` reads and writes ``.zxd`` dictionaries and
 ``dict_train`` trains one (native trainer).
 
+``parallel`` shards the decode and the encode over ranks of
+``torch.distributed`` (``make_mesh``, ``decode_plan_sharded``,
+``decode_plan_dp_sp``, ``dp_sp_kernel``, ``encode_blocks_sharded``,
+``compress_sharded``); ``parallel.launch`` starts the rank processes,
+and ``entry.dryrun_multichip(n)`` runs one sharded decode and encode
+over ``n`` of them (NCCL on the cards, gloo with ``device="cpu"``).
+
 The command line is ``python -m zxc_tpu_torch`` (``cli``), the JAX
 package's ``zxc`` CLI with ``--device`` on the card.
 """
