@@ -134,10 +134,25 @@ Phases, in order; any failure exits non-zero before the result line:
    each rank's bytes equal to the data, and the two corrupt cases
    raising the same ZxcError on both ranks; ``dryrun_multichip(1)`` over
    NCCL, and ``dryrun_multichip(2)`` where the machine has two cards;
-7. corruption must raise ZxcError: a flipped payload byte with checksums
-   on and a truncated archive (cold path, default route, serial route and
-   device entropy route), a hint of another archive, a truncated hint and
-   a hint whose qbase carries the (1<<24)|64 flip.
+7. the host codec surfaces (``host_phase``): ``CStream`` at level 3,
+   64 KiB blocks and checksums, pushed in chunks of 1 MiB + 7 bytes and
+   drained in 64 KiB windows, and ``codec.stream.stream_compress`` with
+   ``os.cpu_count()`` threads must each equal ``compress`` of the corpus
+   with the same options; that archive must decode to the corpus through
+   ``decompress_e2e`` (every counter zeroed first: v26 once a group and
+   nothing else), ``Dctx(device=True)``, ``DStream`` (the same pushes and
+   windows), ``codec.stream.stream_decompress`` and ``decompress_inplace``
+   in one buffer of ``decompress_inplace_bound`` bytes; on the first
+   4 MiB, ``train_dict`` + ``train_dict_huf`` over 64 samples of 16 KiB,
+   then ``Cctx(level=6)`` with that dictionary and ``Cctx(level=7)``
+   without one, each archive (and a ``compress_block``) decoded on the
+   host and by ``ops.decompress`` on the card, which launches no
+   hand-written kernel; each wall with its MB/s;
+8. corruption must raise ZxcError: a flipped payload byte with checksums
+   on and a truncated archive (cold path, default route, serial route,
+   device entropy route, ``DStream``, ``codec.stream.stream_decompress``
+   and ``decompress_inplace``), a hint of another archive, a truncated
+   hint and a hint whose qbase carries the (1<<24)|64 flip.
 
 It prints a ``{"kernels": [...]}`` line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Without CUDA, or outside a checkout of
@@ -1162,6 +1177,160 @@ def sharding_phase(Z, data: bytes, arc: bytes, arc512: bytes,
     print(f"shard phase: {time.perf_counter() - t_phase:.2f} s", flush=True)
 
 
+def host_phase(Z, data: bytes, n_groups: int, device: str = "cuda") -> None:
+    """Phase 7: the host codec surfaces. ``CStream`` and the
+    multi-threaded file pipeline write the one-shot encoder's archive of
+    the corpus; that archive decodes through ``decompress_e2e`` (v26 once a
+    group, no other kernel), ``Dctx(device=True)``, ``DStream``, the file
+    pipeline and ``decompress_inplace``; a dictionary trained on the first
+    4 MiB drives ``Cctx(level=6)``, and ``Cctx(level=7)`` runs without
+    one, each archive decoded on the host and by ``ops.decompress`` on the
+    card. ``device="cpu"`` runs the same checks on the plain versions (no
+    launches) for a dry run away from the card."""
+    import io
+    from zxc_tpu_torch.codec import stream
+    t_phase = time.perf_counter()
+    mb = len(data) / 1e6
+    threads = os.cpu_count() or 1
+    want_opts = Z.EncodeOpts(level=3, block_size=BLOCK, checksum=True,
+                             threads=threads)
+    want = Z.compress(data, want_opts)
+    ck = Z.DecodeOpts(checksum=True)
+
+    def timed(label, fn, nbytes=len(data)):
+        t0 = time.perf_counter()
+        out = fn()
+        wall = time.perf_counter() - t0
+        print(f"host {label}: wall {wall:.4f} s = "
+              f"{nbytes / 1e6 / wall:.2f} MB/s", flush=True)
+        return out
+
+    # CStream at L3 / 64 KiB / checksums: pushes of 1 MiB + 7 bytes,
+    # drained in 64 KiB windows
+    def push():
+        cs = Z.CStream(level=3, block_size=BLOCK, checksum=True)
+        out = bytearray()
+        step = (1 << 20) + 7
+        for pos in range(0, len(data), step):
+            produced, used = cs.compress(data[pos:pos + step], BLOCK)
+            check(used == len(data[pos:pos + step]), "CStream short push")
+            out += produced
+            while True:
+                produced, _ = cs.compress(b"", BLOCK)
+                if not produced:
+                    break
+                out += produced
+        while not cs.finished:
+            out += cs.end(BLOCK)
+        return bytes(out)
+
+    arc = timed("CStream L3 64 KiB checksums, pushes of 1 MiB + 7", push)
+    check(arc == want, "CStream's archive differs from compress's")
+
+    def file_encode():
+        buf = io.BytesIO()
+        n = stream.stream_compress(io.BytesIO(data), buf, Z.EncodeOpts(
+            level=3, block_size=BLOCK, checksum=True), threads)
+        check(n == len(buf.getvalue()), "stream_compress's count")
+        return buf.getvalue()
+
+    arc_mt = timed(f"codec.stream.stream_compress, {threads} threads",
+                   file_encode)
+    check(arc_mt == want, "stream_compress's archive differs from compress's")
+    print(f"host archives: CStream and stream_compress equal compress "
+          f"({len(want)} bytes)", flush=True)
+
+    # the archive through every decode route
+    kern, n_launch = (26, n_groups) if device == "cuda" else (None, 0)
+    run_path("host archive, decompress_e2e v26", kern, n_launch,
+             lambda ph: Z.decompress_e2e(arc, ck, device=device,
+                                         _phases=ph), data, reps=1)
+    dctx = Z.Dctx(checksum=True, device=True if device == "cuda" else device)
+    with Z.profiling.collect_phases() as col:
+        check(timed("Dctx(device=True)", lambda: dctx.decompress(arc))
+              == data, "Dctx(device=True) differs from the corpus")
+    print("host Dctx(device=True) phases: " + ", ".join(
+        f"{k} {v['seconds']:.4f}" for k, v in col.as_dict().items()),
+        flush=True)
+
+    def pull():
+        ds = Z.DStream(checksum=True)
+        out = bytearray()
+        step = (1 << 20) + 7
+        for pos in range(0, len(arc), step):
+            produced, _ = ds.decompress(arc[pos:pos + step], BLOCK)
+            out += produced
+            while True:
+                produced, _ = ds.decompress(b"", BLOCK)
+                if not produced:
+                    break
+                out += produced
+        check(ds.finished, "DStream did not finish")
+        return bytes(out)
+
+    check(timed("DStream, pushes of 1 MiB + 7, 64 KiB windows", pull)
+          == data, "DStream differs from the corpus")
+
+    def file_decode():
+        out = io.BytesIO()
+        n = stream.stream_decompress(io.BytesIO(arc), out, ck, threads)
+        check(n == len(data), "stream_decompress's count")
+        return out.getvalue()
+
+    check(timed(f"codec.stream.stream_decompress, {threads} threads",
+                file_decode) == data,
+          "stream_decompress differs from the corpus")
+    bound = Z.decompress_inplace_bound(arc)
+    buf = bytearray(bound)
+    buf[bound - len(arc):] = arc
+    n = timed(f"decompress_inplace, one buffer of {bound} bytes",
+              lambda: Z.decompress_inplace(buf, len(arc), ck))
+    check(n == len(data) and len(buf) == bound
+          and bytes(buf[:n]) == data, "decompress_inplace differs")
+
+    # the trainer and the contexts on the first 4 MiB
+    head = data[:HEAD_BYTES]
+    samples = [head[i * (HEAD_BYTES // 64):i * (HEAD_BYTES // 64) + (16 << 10)]
+               for i in range(64)]
+    content = timed("train_dict, 64 samples of 16 KiB",
+                    lambda: Z.train_dict(samples), 64 << 14)
+    table = timed("train_dict_huf", lambda: Z.train_dict_huf(samples,
+                                                              content),
+                  64 << 14)
+    check(0 < len(content) <= 16384 and len(table) == 128,
+          f"trained {len(content)} bytes of content, {len(table)} of table")
+    print(f"host dictionary: {len(content)} bytes of content, id "
+          f"{Z.Dictionary(content, table).id:#010x}", flush=True)
+    for label, cctx, opts in (
+            ("Cctx(level=6) with the dictionary",
+             Z.Cctx(level=6).attach_dict(content, table),
+             Z.DecodeOpts(dict_content=content, dict_huf=table)),
+            ("Cctx(level=7)", Z.Cctx(level=7), Z.DecodeOpts())):
+        a = timed(f"{label}, first 4 MiB", lambda: cctx.compress(head),
+                  len(head))
+        blk = cctx.compress_block(head[:BLOCK])
+        dx = Z.Dctx()
+        if opts.dict_content:
+            dx.attach_dict(content, table)
+        check(dx.decompress_block(blk, BLOCK) == head[:BLOCK],
+              f"{label}: compress_block does not decode")
+        check(timed(f"{label}: frame.decompress",
+                    lambda: Z.decompress(a, opts), len(head)) == head,
+              f"{label}: the host decode differs")
+        zero_counts()
+        got = timed(f"{label}: ops.decompress on {device}",
+                    lambda: Z.ops.decompress(a, opts, device=device),
+                    len(head))
+        counts = read_counts()
+        check(got == head, f"{label}: ops.decompress differs")
+        check(not any(counts.values()), f"{label}: launches {counts}")
+        print(f"host {label}: {len(a)} bytes ({len(a) / len(head):.4f}), "
+              f"decoded on the host and by ops.decompress, launches "
+              f"{sum(counts.values())}", flush=True)
+    print(f"host phase: {time.perf_counter() - t_phase:.2f} s "
+          f"({mb:.1f} MB corpus)", flush=True)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("CUDA is not available: this smoke run needs an NVIDIA card")
@@ -1684,7 +1853,10 @@ def main() -> None:
     # -- 6. the sharded decode and encode ---------------------------------
     sharding_phase(Z, data, arc, arc512, out_dir, smi)
 
-    # -- 7. corruption -------------------------------------------------------
+    # -- 7. the host codec surfaces ---------------------------------------
+    host_phase(Z, data, n_groups)
+
+    # -- 8. corruption -------------------------------------------------------
     small = Z.compress(data[:4 * BLOCK], Z.EncodeOpts(
         level=3, block_size=BLOCK, checksum=True))
     bad = bytearray(small)
@@ -1697,6 +1869,18 @@ def main() -> None:
     flipped = os.path.join(out_dir, "flipped.zxh")
     flipped_qbase_hint(H, small_hint, flipped)
     ck = Z.DecodeOpts(checksum=True)
+
+    def stream_decode(a, opts):
+        import io
+        from zxc_tpu_torch.codec import stream
+        stream.stream_decompress(io.BytesIO(a), io.BytesIO(), opts,
+                                 os.cpu_count() or 1)
+
+    def inplace(a, opts):
+        buf = bytearray(Z.decompress_inplace_bound(small))
+        buf[len(buf) - len(a):] = a
+        Z.decompress_inplace(buf, len(a), opts)
+
     for name, call in (
             ("flipped payload byte", lambda: Z.decompress_e2e(
                 bytes(bad), ck, device="cuda")),
@@ -1721,7 +1905,19 @@ def main() -> None:
             ("truncated hint", lambda: Z.decompress_e2e(
                 small, device="cuda", hint=truncated)),
             ("hint with qbase (1<<24)|64", lambda: Z.decompress_e2e(
-                small, device="cuda", hint=flipped))):
+                small, device="cuda", hint=flipped)),
+            ("flipped payload byte, DStream", lambda: Z.stream_decompress(
+                bytes(bad), True)),
+            ("truncated archive, DStream", lambda: Z.stream_decompress(
+                small[:len(small) // 2])),
+            ("flipped payload byte, stream_decompress",
+             lambda: stream_decode(bytes(bad), ck)),
+            ("truncated archive, stream_decompress",
+             lambda: stream_decode(small[:len(small) // 2], None)),
+            ("flipped payload byte, decompress_inplace",
+             lambda: inplace(bytes(bad), ck)),
+            ("truncated archive, decompress_inplace",
+             lambda: inplace(small[:len(small) // 2], None))):
         try:
             call()
         except Z.ZxcError as e:

@@ -514,7 +514,7 @@ def test_encode_chunk_on_sequences_equals_jax(corpus, level, checksum):
             else _corpora()[corpus])
     arr = np.frombuffer(data, np.uint8)
     seqs = _host_seqs(arr, level)
-    got = pbe.encode_chunk(arr, level, checksum, sequences=seqs)
+    got = pbe.encode_chunk(arr, level, None, checksum, sequences=seqs)
     assert got == jbe.encode_chunk(arr, level, None, checksum,
                                    sequences=seqs)
 

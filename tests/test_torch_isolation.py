@@ -41,7 +41,8 @@ def test_import_leaves_jax_and_zxc_tpu_out():
             "zxc_tpu_torch.entry, zxc_tpu_torch.cli, "
             "zxc_tpu_torch.codec.dict_train, zxc_tpu_torch.parallel, "
             "zxc_tpu_torch.parallel.launch, zxc_tpu_torch.parallel.jobs, "
-            "zxc_tpu_torch.parallel.sharding\n"
+            "zxc_tpu_torch.parallel.sharding, zxc_tpu_torch.codec.pstream, "
+            "zxc_tpu_torch.codec.stream, zxc_tpu_torch.codec.frame\n"
             "import runpy, contextlib, io\n"
             "sys.argv = ['zxc', '-V']\n"
             "with contextlib.redirect_stdout(io.StringIO()):\n"
@@ -176,6 +177,64 @@ def test_missing_native_library_raises(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError):
         Z.compress(b"data", Z.EncodeOpts(block_size=16384))
     assert not list((tmp_path / "build").glob("*.so"))
+
+
+def test_public_api_covers_zxc_tpu():
+    """Every public name of ``zxc_tpu/__init__.py`` is a name of
+    ``zxc_tpu_torch``, of the same kind."""
+    import zxc_tpu as J
+    with open(os.path.join(ROOT, "zxc_tpu", "__init__.py")) as f:
+        tree = ast.parse(f.read())
+    names = {"__version__", "FORMAT_VERSION"}
+    for node in tree.body:
+        if isinstance(node, ast.ImportFrom):
+            names |= {a.asname or a.name for a in node.names
+                      if a.name != "*"}
+            if any(a.name == "*" for a in node.names):
+                mod = getattr(J, node.module.split(".")[-1])
+                names |= {n for n in dir(mod) if n.startswith("ERROR_")}
+        elif isinstance(node, ast.Import):
+            names |= {a.asname or a.name for a in node.names}
+    assert {"Cctx", "CStream", "DStream", "decompress_inplace",
+            "train_dict_huf", "stream_get_decompressed_size"} <= names
+    for n in sorted(names):
+        assert hasattr(Z, n), n
+        assert callable(getattr(Z, n)) == callable(getattr(J, n)), n
+    assert Z.FORMAT_VERSION == J.FORMAT_VERSION
+    for n in names:
+        if n.startswith("ERROR_"):
+            assert getattr(Z, n) == getattr(J, n), n
+
+
+def test_host_surfaces_raise_without_the_native_library(tmp_path,
+                                                        monkeypatch):
+    """The host encoder, streams, in-place decode and table trainer have
+    no Python fallback: an unbuildable native library raises."""
+    import io
+    from zxc_tpu_torch.codec import stream
+    data = b"abcdefgh" * 3000
+    arc = Z.compress(data, Z.EncodeOpts(block_size=16384))
+    broken = tmp_path / "zxc_host.cpp"
+    broken.write_text("this is not C++\n")
+    monkeypatch.setattr(runtime, "_SRC", str(broken))
+    monkeypatch.setattr(runtime, "_lib", None)
+    monkeypatch.setattr(buildlib, "BUILD_DIR", str(tmp_path / "build"))
+    buf = bytearray(Z.decompress_inplace_bound(arc))
+    buf[len(buf) - len(arc):] = arc
+    for call in (lambda: Z.Cctx().compress(data),
+                 lambda: Z.Cctx(level=1).compress_block(data[:4096]),
+                 lambda: Z.Cctx(level=6).compress_block(data[:4096]),
+                 lambda: Z.stream_compress(data),
+                 lambda: Z.stream_decompress(arc),
+                 lambda: stream.stream_compress(io.BytesIO(data),
+                                                io.BytesIO(), None, 2),
+                 lambda: stream.stream_decompress(io.BytesIO(arc),
+                                                  io.BytesIO(), None, 2),
+                 lambda: Z.decompress_inplace(buf, len(arc)),
+                 lambda: Z.train_dict_huf([data], data[:1024]),
+                 lambda: Z.dict_train([data] * 8)):
+        with pytest.raises(RuntimeError, match="building libzxchost"):
+            call()
 
 
 def test_failed_kernel_build_raises(tmp_path, monkeypatch):

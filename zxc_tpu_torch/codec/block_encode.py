@@ -1,23 +1,33 @@
-"""Block emitters of the device encoder: GHI (level 1), GLO (levels
-2-7), the all-literal Huffman candidate and the RAW fallback.
+"""Block encoders: GHI (level 1), GLO (levels 2-7), the all-literal
+Huffman candidate and the RAW fallback.
 
-The port's copy of the emission half of ``zxc_tpu.codec.block_encode``.
-It takes the sequences a matcher chose (``(m_pos, m_len, m_off)`` in block
-coordinates, ``ops.encode`` on the card) and emits the block's sections;
-the host matcher stays behind the native ``codec.frame.compress``. No
-dictionary on this path. Literal sections are priced with the reference's
-space-speed rule ``J = size + (n_decoded * premium) >> 8`` and the
-cheapest wins, so the bytes equal the JAX package's for the same
-sequences.
+The port's copy of ``zxc_tpu.codec.block_encode`` over the native
+runtime. From plaintext, levels 1-5 run the native find + parse
+(``runtime.find_parse``) or the fused native emitters
+(``runtime.encode_ghi`` / ``encode_glo``); levels 6-7 run the native
+per-position matcher, a first-pass lazy parse whose literal histogram
+prices the native DP optimal parse, at level 7 a second DP re-priced
+with the token tree, and an 8-bit-offset DP when an offset exceeds 256;
+every candidate is emitted and the shortest payload wins. Given
+``sequences`` (``(m_pos, m_len, m_off)`` in block coordinates, the device
+matcher of ``ops.encode``) the matcher is skipped. A dictionary
+(``DictState``) prefixes the match window and its shared literal table
+competes in every GLO literal auction. Literal sections are priced with
+the reference's space-speed rule ``J = size + (n_decoded * premium) >> 8``
+and the cheapest wins, so the bytes equal the JAX package's. The JAX
+package's numpy matcher and parsers are not copied: without the native
+library these functions raise.
 """
 from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
 
 import numpy as np
 
 from .. import constants as C
 from .. import runtime
 from ..format import headers
-from ..format.hashes import rapidhash32
 from ..format.varint import varint_encode
 from . import huffman
 from .frame import level_params
@@ -146,20 +156,158 @@ def _sequences_to_streams(data: np.ndarray, m_pos: np.ndarray,
     return ll, m_len, m_off, data[~in_match]
 
 
-def _build_sequences(data: np.ndarray, sequences):
-    """The ``sequences`` branch of the JAX package's front half: the
-    streams of the given (m_pos, m_len, m_off)."""
-    m_pos, m_len, m_off = (np.asarray(a, np.int64) for a in sequences)
-    return _sequences_to_streams(data, m_pos, m_len, m_off)
+@dataclass
+class DictState:
+    """Encoder-side dictionary state: content + optional shared table."""
+    content: np.ndarray
+    huf_lengths: bytes | None = None
+    tree: "huffman.PivcoTree" = None
+
+    def __post_init__(self):
+        if self.huf_lengths is not None and self.tree is None:
+            self.tree = huffman.build_tree_packed(bytes(self.huf_lengths))
 
 
-def encode_block_glo(data: np.ndarray, level: int, sequences) -> bytes:
-    """GLO payload (no block header) of the given sequences (reference:
-    zxc_encode_block_glo, zxc_compress.c:1179-1864)."""
-    return _glo_payload(data, level, _build_sequences(data, sequences))
+def _window(data: np.ndarray, dict_state: DictState | None):
+    """The match window (dictionary content, then the block) and where the
+    block starts in it."""
+    if dict_state is not None and len(dict_state.content):
+        return (np.concatenate([dict_state.content, data]),
+                len(dict_state.content))
+    return data, 0
 
 
-def _glo_payload(data: np.ndarray, level: int, streams) -> bytes:
+def _first_pass_costs(data, lens, offs, max_code_len: int) -> np.ndarray:
+    """Literal prices (bits a byte value) for the DP: the code lengths of
+    the literals a first-pass lazy parse leaves, or a flat 8 bits where
+    that Huffman section would lose to RAW (high-entropy data)."""
+    g_pos, g_len, _ = runtime.lazy_parse(lens, offs, True)
+    cover = np.zeros(len(data) + 1, np.int64)
+    np.add.at(cover, g_pos, 1)
+    np.add.at(cover, np.minimum(g_pos + g_len, len(data)), -1)
+    first_lit = data[np.cumsum(cover[:len(data)]) == 0]
+    freq = np.bincount(first_lit, minlength=256)
+    cl = huffman.build_code_lengths(freq, max_code_len)
+    if cl is None:
+        return np.full(256, 8, np.uint16)
+    # regime check: priced below 8 bits, literals the auction will ship
+    # RAW make the DP undervalue matches
+    hb = int((freq * np.where(cl > 0, cl, 0)).sum())
+    if hb + 128 * 8 >= int(freq.sum()) * 8:
+        return np.full(256, 8, np.uint16)
+    # absent symbols: a finite pessimistic cost
+    return np.where(cl > 0, cl, max_code_len + 2).astype(np.uint16)
+
+
+def _token_costs(pos, length) -> np.ndarray | None:
+    """The level-7 re-pricing: the 8-bit token tree of a parse's tokens,
+    marginalised over the literal-length nibble, as 16 costs by match
+    length nibble. Float64 numpy, rounded half to even, as the JAX
+    package's."""
+    p_pos = pos.astype(np.int64)
+    p_len = length.astype(np.int64)
+    p_ll = p_pos - np.concatenate([[0], (p_pos + p_len)[:-1]])
+    nib_ll = np.minimum(p_ll, C.TOKEN_LL_MASK)
+    nib_ml = np.minimum(p_len - C.MIN_MATCH, C.TOKEN_ML_MASK)
+    toks = (nib_ll << C.TOKEN_LIT_BITS) | nib_ml
+    tcl = huffman.build_code_lengths(np.bincount(toks, minlength=256), 8)
+    if tcl is None:
+        return None
+    tcost = np.where(tcl > 0, tcl, 10).astype(np.float64)
+    pll = np.bincount(nib_ll, minlength=16).astype(np.float64)
+    pll /= max(pll.sum(), 1.0)
+    return np.rint(pll @ tcost.reshape(16, 16)).astype(np.uint16)
+
+
+def _build_sequences(data: np.ndarray, level: int,
+                     dict_state: DictState | None, sequences=None,
+                     probes: int | None = None):
+    """Match find + parse: a non-empty list of candidate (ll, ml, off,
+    literals) stream tuples in block coordinates, more than one where the
+    parser proposes alternatives for the caller to price exactly (the
+    re-priced level-7 DP, the 8-bit-offset DP).
+
+    ``sequences`` short-circuits the matcher with (m_pos, m_len, m_off);
+    ``probes`` overrides the level's chain depth (level 6's deepening)."""
+    params = level_params(level)
+    if probes is not None:
+        params = dataclasses.replace(params, n_candidates=probes)
+    if sequences is not None:
+        m_pos, m_len, m_off = (np.asarray(a, np.int64) for a in sequences)
+        return [_sequences_to_streams(data, m_pos, m_len, m_off)]
+    full, start = _window(data, dict_state)
+    if level < 6:
+        seqs = runtime.find_parse(full, start, params.n_candidates,
+                                  params.lazy, params.sufficient_len,
+                                  params.step_base, params.step_shift,
+                                  params.cover_base, params.min_emit)
+        return [_sequences_to_streams(data, *(a.astype(np.int64)
+                                              for a in seqs))]
+    lens, offs = runtime.find_matches(full, start, params.n_candidates)
+    # DP optimal parse (reference: zxc_lz77_optimal_parse_glo,
+    # zxc_compress.c:809); level 7 prices tokens at 5 bits, its token
+    # section being Huffman-coded
+    cost = _first_pass_costs(data, lens, offs, params.max_code_len)
+    tok_bits = 5 if level >= 7 else 8
+    r = runtime.optimal_parse(lens, offs, data, cost, tok_bits)
+    parses = [r]
+    if level >= 7 and len(r[0]) >= 64:
+        # the second DP, priced with pass 1's token tree, enters the
+        # auction beside pass 1 (it can lose where it shifts its own
+        # token distribution)
+        tok16 = _token_costs(r[0], r[1])
+        if tok16 is not None:
+            r2 = runtime.optimal_parse(lens, offs, data, cost, tok_bits,
+                                       tok_cost16=tok16)
+            if not all(np.array_equal(a, b) for a, b in zip(r2, r)):
+                parses.append(r2)
+    out = [_sequences_to_streams(data, *(a.astype(np.int64) for a in pr))
+           for pr in parses]
+    if any(len(pr[2]) and pr[2].max() > 256 for pr in parses):
+        # one far offset flips the block to 16-bit offsets: an 8-bit-only
+        # DP competes (reference offset-mode choice, zxc_compress.c:1694)
+        r8 = runtime.optimal_parse(lens, offs, data, cost, tok_bits,
+                                   only8=True)
+        out.append(_sequences_to_streams(data, *(a.astype(np.int64)
+                                                 for a in r8)))
+    return out
+
+
+def encode_block_glo(data: np.ndarray, level: int,
+                     dict_state: DictState | None = None,
+                     sequences=None) -> bytes:
+    """GLO payload, no block header (reference: zxc_encode_block_glo,
+    zxc_compress.c:1179-1864)."""
+    if sequences is None and level < 6:
+        # the fused native path: find, parse, emit and literal auction
+        params = level_params(level)
+        full, start = _window(data, dict_state)
+        cl = (dict_state.tree.code_len if start and dict_state.tree
+              is not None else None)
+        return runtime.encode_glo(full, start, params.n_candidates,
+                                  params.lazy, params.sufficient_len,
+                                  params.step_base, params.step_shift,
+                                  params.cover_base, params.min_emit,
+                                  dict_cl=cl)
+    cands = _build_sequences(data, level, dict_state, sequences)
+    best = min((_glo_payload(data, level, dict_state, c) for c in cands),
+               key=len)
+    # adaptive deepening (level 6, as zxch_encode_block_dispatch): a
+    # payload over 45% of the input (machine code) reruns at 3x the chain
+    # depth and keeps the smaller payload
+    if (level == 6 and sequences is None
+            and len(best) * 20 > len(data) * 9):
+        deep = _build_sequences(data, level, dict_state, None,
+                                probes=level_params(level).n_candidates * 3)
+        d = min((_glo_payload(data, level, dict_state, c) for c in deep),
+                key=len)
+        if len(d) < len(best):
+            best = d
+    return best
+
+
+def _glo_payload(data: np.ndarray, level: int,
+                 dict_state: DictState | None, streams) -> bytes:
     ll, ml, off, literals = streams
     n_seq = len(ml)
     n_lit = len(literals)
@@ -205,6 +353,19 @@ def _glo_payload(data: np.ndarray, level: int, streams) -> bytes:
                     if j < best_j:
                         enc_lit, best_j = C.ENC_HUFFMAN, j
                         best_stream = huffman.pack_lengths(cl) + pay
+        if dict_state is not None and dict_state.tree is not None:
+            # the shared table competes at every level: it pays no
+            # 128-byte inline header (the reference lets it compete at
+            # ULTRA only)
+            freq = np.bincount(literals, minlength=256)
+            cl_d = dict_state.tree.code_len
+            # the native encoder drops symbols without a code: gate first
+            if not ((freq > 0) & (cl_d == 0)).any():
+                pay = huffman.encode_payload(literals, dict_state.tree)
+                j = len(pay) + ((n_lit * _prem_huf(level)) >> 8)
+                if j < best_j:
+                    enc_lit, best_j = C.ENC_HUFFMAN_DICT, j
+                    best_stream = pay
 
     # --- token section candidate (ULTRA): Huffman over token bytes ---
     enc_tok = C.ENC_RAW
@@ -231,10 +392,21 @@ def _glo_payload(data: np.ndarray, level: int, streams) -> bytes:
             + off_stream + extras)
 
 
-def encode_block_ghi(data: np.ndarray, level: int, sequences) -> bytes:
-    """GHI payload of the given sequences (reference:
-    zxc_encode_block_ghi, zxc_compress.c:1895)."""
-    ll, ml, off, literals = _build_sequences(data, sequences)
+def encode_block_ghi(data: np.ndarray, level: int,
+                     dict_state: DictState | None = None,
+                     sequences=None) -> bytes:
+    """GHI payload (reference: zxc_encode_block_ghi, zxc_compress.c:1895):
+    the fused native emitter from plaintext without a dictionary, else the
+    given or parsed sequences emitted here."""
+    if sequences is None and (dict_state is None
+                              or not len(dict_state.content)):
+        params = level_params(level)
+        return runtime.encode_ghi(data, 0, params.n_candidates,
+                                  params.lazy, params.sufficient_len,
+                                  params.step_base, params.step_shift,
+                                  params.cover_base, params.min_emit)
+    ll, ml, off, literals = _build_sequences(data, level, dict_state,
+                                             sequences)[0]
     n_seq = len(ml)
     n_lit = len(literals)
     mlb = ml - C.MIN_MATCH
@@ -281,33 +453,41 @@ def encode_block_hufflit(data: np.ndarray, budget: int) -> bytes | None:
     return headers.write_gnr_header(gh, descs) + pay
 
 
-def encode_chunk(data: np.ndarray, level: int, checksum: bool,
-                 sequences) -> bytes:
-    """Block header + payload (+ checksum) of the given sequences, RAW
-    when the block would expand (reference: zxc_compress_chunk_wrapper,
-    zxc_compress.c:2122). Level 1 emits GHI, levels 2-5 GLO, each against
-    the all-literal Huffman candidate, levels 6-7 GLO."""
+def encode_chunk(data: np.ndarray, level: int,
+                 dict_state: DictState | None = None,
+                 checksum: bool = False, sequences=None) -> bytes:
+    """Block header + payload (+ checksum), RAW when the block would
+    expand (reference: zxc_compress_chunk_wrapper, zxc_compress.c:2122).
+    Level 1 emits GHI, or without a dictionary the all-literal Huffman
+    block where smaller; levels 2-5 GLO against the all-literal Huffman
+    candidate; levels 6-7 GLO. ``sequences``: precomputed (m_pos, m_len,
+    m_off) of an external matcher (``ops.encode``)."""
+    no_dict = dict_state is None or not len(dict_state.content)
     if level <= 1:
-        payload = encode_block_ghi(data, level, sequences)
+        payload = encode_block_ghi(data, level, dict_state, sequences)
         btype = C.BLOCK_GHI
-        budget = min(len(payload), max(len(data) - C.BLOCK_HEADER_SIZE, 0))
-        hl = encode_block_hufflit(data, budget)
-        if hl is not None:
-            payload, btype = hl, C.BLOCK_GLO
+        if no_dict:
+            budget = min(len(payload),
+                         max(len(data) - C.BLOCK_HEADER_SIZE, 0))
+            hl = encode_block_hufflit(data, budget)
+            if hl is not None:
+                payload, btype = hl, C.BLOCK_GLO
     elif level <= 5:
-        payload = encode_block_glo(data, level, sequences)
+        # the all-literal candidate reads the block bytes alone and is
+        # wire-legal in a dictionary frame, so it competes either way
+        payload = encode_block_glo(data, level, dict_state, sequences)
         btype = C.BLOCK_GLO
         budget = min(len(payload), max(len(data) - C.BLOCK_HEADER_SIZE, 0))
         hl = encode_block_hufflit(data, budget)
         if hl is not None:
             payload = hl
     else:
-        payload = encode_block_glo(data, level, sequences)
+        payload = encode_block_glo(data, level, dict_state, sequences)
         btype = C.BLOCK_GLO
     if C.BLOCK_HEADER_SIZE + len(payload) >= len(data):
         payload = data.tobytes()
         btype = C.BLOCK_RAW
     out = headers.write_block_header(btype, len(payload)) + payload
     if checksum:
-        out += int(rapidhash32(payload)).to_bytes(4, "little")
+        out += runtime.rapidhash32(payload).to_bytes(4, "little")
     return out

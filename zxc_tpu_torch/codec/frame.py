@@ -7,11 +7,14 @@ argument). ``compress`` is the native frame encoder only
 (``zxch_compress_frame``, byte-identical to ``zxc_tpu.codec.frame.compress``)
 and ``decompress`` the native frame decoder only (``zxch_decompress_frame``);
 without the native library both raise — the port has no Python codec.
+``decompress_inplace`` decodes an archive inside the one buffer that
+holds it (``decompress_inplace_bound`` bytes), natively, in place.
 ``iter_blocks``, ``get_decompressed_size`` and ``get_dict_id`` read the
 frame's structure, as the JAX package's do.
 """
 from __future__ import annotations
 
+import struct
 from dataclasses import dataclass
 
 import numpy as np
@@ -75,6 +78,17 @@ def level_params(level: int) -> LevelParams:
     return _LEVELS[max(C.LEVEL_MIN, min(C.LEVEL_MAX, level))]
 
 
+def block_size_code(block_size: int) -> int:
+    """The file header's exponent code of ``block_size``. Raises
+    ZxcError(BAD_BLOCK_SIZE) unless it is a power of two from 4 KiB to
+    2 MiB (where the JAX package's encoders raise ValueError)."""
+    try:
+        return C.block_size_code(block_size)
+    except ValueError:
+        raise ZxcError(ERROR_BAD_BLOCK_SIZE,
+                       f"block size {block_size}") from None
+
+
 def compress(data: bytes, opts: EncodeOpts | None = None) -> bytes:
     """One-shot frame encode (zxc_compress equivalent) through the native
     library. Raises ZxcError on bad options or an encoder error, and
@@ -82,10 +96,7 @@ def compress(data: bytes, opts: EncodeOpts | None = None) -> bytes:
     opts = opts or EncodeOpts()
     level = max(C.LEVEL_MIN, min(C.LEVEL_MAX, opts.level or C.LEVEL_DEFAULT))
     block_size = opts.block_size or C.BLOCK_SIZE_DEFAULT
-    try:
-        code = C.block_size_code(block_size)
-    except ValueError:
-        raise ZxcError(ERROR_BAD_BLOCK_SIZE) from None
+    code = block_size_code(block_size)
     dict_buf = dict_cl = None
     did = 0
     if opts.dict_content:
@@ -148,13 +159,7 @@ def decompress(archive: bytes, opts: DecodeOpts | None = None, *,
         raise ZxcError(ERROR_SRC_TOO_SMALL)
     fh = headers.read_file_header(archive)
     verify = bool(opts and opts.checksum) and fh.has_checksum
-    dict_buf = dict_cl = None
-    provided_id = 0
-    if opts is not None and opts.dict_content:
-        dict_buf = np.frombuffer(opts.dict_content, np.uint8)
-        if opts.dict_huf is not None:
-            dict_cl = huffman.build_tree_packed(bytes(opts.dict_huf)).code_len
-        provided_id = compute_dict_id(opts.dict_content, opts.dict_huf)
+    dict_buf, dict_cl, provided_id = _dict_args(opts)
     if fh.dict_id != 0:
         if dict_buf is None:
             raise ZxcError(ERROR_DICT_REQUIRED)
@@ -178,3 +183,75 @@ def decompress(archive: bytes, opts: DecodeOpts | None = None, *,
     if w != dsize:
         raise ZxcError(ERROR_CORRUPT_DATA, "footer size mismatch")
     return w if out is not None else dst.tobytes()
+
+
+DECOMPRESS_TAIL_PAD = 32
+
+
+def _dict_args(opts: DecodeOpts | None):
+    """(dict_buf, dict_cl, provided_id) of the options' dictionary."""
+    if opts is None or not opts.dict_content:
+        return None, None, 0
+    dict_cl = None
+    if opts.dict_huf is not None:
+        dict_cl = huffman.build_tree_packed(bytes(opts.dict_huf)).code_len
+    return (np.frombuffer(opts.dict_content, np.uint8), dict_cl,
+            compute_dict_id(opts.dict_content, opts.dict_huf))
+
+
+def _inplace_margin(dsize: int, block_size: int, has_checksum: bool) -> int:
+    """One block + per-block overhead + trailing structures + wild-copy
+    pad (reference: zxc_inplace_margin, zxc_dispatch.c:1045)."""
+    nblocks = (dsize + block_size - 1) // block_size if block_size else 0
+    per_block = C.BLOCK_HEADER_SIZE + (C.BLOCK_CHECKSUM_SIZE
+                                       if has_checksum else 0)
+    trailing = (C.BLOCK_HEADER_SIZE
+                + (C.BLOCK_HEADER_SIZE + nblocks * C.SEEK_ENTRY_SIZE)
+                + C.FILE_FOOTER_SIZE)
+    return block_size + nblocks * per_block + trailing + DECOMPRESS_TAIL_PAD
+
+
+def decompress_inplace_bound(archive: bytes) -> int:
+    """Minimum single-buffer size for an in-place decode; 0 when the
+    archive's header or footer is invalid (zxc_decompress_inplace_bound)."""
+    try:
+        fh = headers.read_file_header(archive)
+        dsize, _ = headers.read_file_footer(archive)
+    except ZxcError:
+        return 0
+    return dsize + _inplace_margin(dsize, fh.block_size, fh.has_checksum)
+
+
+def decompress_inplace(buffer: bytearray, comp_size: int,
+                       opts: DecodeOpts | None = None) -> int:
+    """Decode an archive sitting flush-right in ``buffer`` (a bytearray)
+    into ``buffer[0:dsize]``; returns dsize (zxc_decompress_inplace,
+    zxc_dispatch.c:1104-1165). The margin checked here keeps the native
+    decoder's write cursor at least 32 bytes behind its read cursor, so it
+    decodes in the one buffer; there is no out-of-place fallback."""
+    if comp_size < C.FILE_HEADER_SIZE + C.FILE_FOOTER_SIZE or \
+            comp_size > len(buffer):
+        raise ZxcError(ERROR_SRC_TOO_SMALL)
+    hdr = bytes(buffer[len(buffer) - comp_size:
+                       len(buffer) - comp_size + C.FILE_HEADER_SIZE])
+    foot = bytes(buffer[len(buffer) - C.FILE_FOOTER_SIZE:])
+    fh = headers.read_file_header(hdr)
+    dsize, _ = struct_unpack_footer(foot)
+    margin = _inplace_margin(dsize, fh.block_size, fh.has_checksum)
+    if dsize > len(buffer) or len(buffer) - dsize < margin:
+        raise ZxcError(ERROR_DST_TOO_SMALL, "missing in-place margin")
+    verify = bool(opts and opts.checksum) and fh.has_checksum
+    dict_buf, dict_cl, provided_id = _dict_args(opts)
+    if fh.dict_id != 0:
+        if dict_buf is None:
+            raise ZxcError(ERROR_DICT_REQUIRED)
+        if provided_id != fh.dict_id:
+            raise ZxcError(ERROR_DICT_MISMATCH)
+    return runtime.decompress_frame_into(buffer, comp_size, fh.block_size,
+                                         fh.has_checksum, verify, dict_buf,
+                                         dict_cl)
+
+
+def struct_unpack_footer(foot: bytes) -> tuple[int, int]:
+    """(decoded size, global hash) of a 12-byte footer, unchecked."""
+    return struct.unpack("<QI", foot)

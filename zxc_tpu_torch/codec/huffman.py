@@ -6,10 +6,12 @@ nibble first. ``build_tree`` validates a table as the JAX package's does
 (the same errors for an empty, over- or under-full code) and builds the
 canonical trie with its PivCo wire annotations. Decoding runs in the
 native decoder (``zxch_pivco_decode``), which builds its own trie from the
-lengths. The encode half serves the device encoder's host emitter:
+lengths. The encode half serves the block encoder's emitters:
 ``encode_payload`` (native, with the numpy encoder for a code the native
 one refuses), ``calc_size`` and ``build_code_lengths`` (native
-package-merge). Without the native library these functions raise.
+package-merge), with ``encoded_bits`` and ``nudge_code_lengths`` (the
+reference's reduced-cap nudge, which no encoder applies). Without the
+native library these functions raise.
 """
 from __future__ import annotations
 
@@ -425,3 +427,41 @@ def build_code_lengths(freq: np.ndarray, max_len: int) -> np.ndarray | None:
     if cl is None:
         raise ValueError(f"no package-merge code for max_len {max_len}")
     return cl
+
+
+# ---------------------------------------------------------------------------
+# Decode-speed nudge (reference: zxc_huf_nudge_code_lengths, :824-971)
+# ---------------------------------------------------------------------------
+
+NUDGE_MAX_GROWTH = 1.015  # adoption guard: <= +1.5% encoded bits
+
+
+def encoded_bits(freq: np.ndarray, code_len: np.ndarray) -> int:
+    """Total payload bits for a histogram under the given lengths."""
+    return int((np.asarray(freq, np.int64) *
+                np.asarray(code_len, np.int64)).sum())
+
+
+def nudge_code_lengths(freq: np.ndarray, code_len: np.ndarray,
+                       max_len: int) -> np.ndarray:
+    """Reshape code lengths for decode speed within a size budget: rebuild
+    the code under successively smaller length caps and adopt the
+    shallowest one whose payload grows at most NUDGE_MAX_GROWTH (the
+    reference nudge's reduced-cap rebuild). The encoder does not apply
+    it, as the JAX package's does not; it stays for parity study."""
+    base_bits = encoded_bits(freq, code_len)
+    best = code_len
+    depth = int(code_len.max())
+    for cap in range(depth - 1, 1, -1):
+        try:
+            cl = build_code_lengths(freq, cap)
+        except ZxcError:
+            break
+        if cl is None:
+            break
+        bits = encoded_bits(freq, cl)
+        if bits <= base_bits * NUDGE_MAX_GROWTH:
+            best = cl
+        else:
+            break
+    return best

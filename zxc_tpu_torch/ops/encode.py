@@ -401,7 +401,8 @@ def _host_seqs(n_seq, pos, lns, off):
 def _encode_block(arr, level: int, checksum: bool, seqs, capped: bool):
     if capped and len(seqs[0]):
         seqs = _extend_capped_host(arr, *seqs)
-    return block_encode.encode_chunk(arr, level, checksum, sequences=seqs)
+    return block_encode.encode_chunk(arr, level, checksum=checksum,
+                                     sequences=seqs)
 
 
 def encode_chunk_device(data: bytes | np.ndarray, level: int, device=None,

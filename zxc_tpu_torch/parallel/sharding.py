@@ -393,7 +393,8 @@ def compress_sharded(data: bytes, mesh: DeviceMesh, level: int = 3,
         seqs = ENC._host_seqs(*_match_parse(
             _rank_blocks(blocks, lo, hi, mesh), level))
         clock("device")
-        local = [block_encode.encode_chunk(blocks[lo + j], level, checksum,
+        local = [block_encode.encode_chunk(blocks[lo + j], level,
+                                           checksum=checksum,
                                            sequences=seqs[j])
                  for j in range(hi - lo)]
         clock("emit")

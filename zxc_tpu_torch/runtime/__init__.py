@@ -10,9 +10,10 @@ form (``*_prep_block_plan``), the hint replay of the literal window
 (RLE literals, varint extras, PivCo entropy), the piece resolver and
 the lane-op and window-op splitters, the host block decoder
 (``Seekable``), the host frame decoder (the hint body is itself a
-frame), rapidhash64, the native frame encoder, the section emitters
-of the device encoder's host half (PivCo encode, RLE literals and
-package-merge code lengths), and the dictionary trainer.
+frame, also in place), rapidhash64, the native frame encoder, the
+section emitters of the device encoder's host half (PivCo encode, RLE
+literals and package-merge code lengths), the host block encoder's
+matcher, parsers and fused GHI/GLO emitters, and the dictionary trainer.
 
 Unlike ``zxc_tpu.runtime`` there is no pure-Python fallback: the port's
 decode path has no Python prep, so a library that cannot be built or
@@ -29,7 +30,7 @@ import numpy as np
 from .. import constants as C
 from ..buildlib import build_shared
 from ..errors import (ZxcError, ERROR_BAD_OFFSET, ERROR_CORRUPT_DATA,
-                      ERROR_NULL_INPUT)
+                      ERROR_NULL_INPUT, ERROR_OVERFLOW)
 
 _SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "zxc_host.cpp")
 
@@ -119,6 +120,23 @@ def _bind(L: ctypes.CDLL) -> None:
     L.zxch_code_lengths.argtypes = [vp, ci, vp]
     L.zxch_dict_train.restype = i64
     L.zxch_dict_train.argtypes = [vp, vp, ci, u64, vp, u64]
+    # the host block encoder's matcher, parsers and fused emitters
+    L.zxch_find_matches.restype = ci
+    L.zxch_find_matches.argtypes = [vp, u64, u64, ci, vp, vp]
+    L.zxch_lazy_parse.restype = i64
+    L.zxch_lazy_parse.argtypes = [vp, vp, u64, ci, ci, vp, vp, vp, u64]
+    L.zxch_optimal_parse.restype = i64
+    L.zxch_optimal_parse.argtypes = [vp, vp, u64, vp, vp, ci, ci, vp, vp,
+                                     vp, vp, u64]
+    L.zxch_find_parse.restype = i64
+    L.zxch_find_parse.argtypes = [vp, u64, u64, ci, ci, ci, ci, ci, ci, ci,
+                                  vp, vp, vp, u64]
+    L.zxch_encode_ghi.restype = i64
+    L.zxch_encode_ghi.argtypes = [vp, u64, u64, ci, ci, ci, ci, ci, ci, ci,
+                                  vp, u64]
+    L.zxch_encode_glo.restype = i64
+    L.zxch_encode_glo.argtypes = [vp, u64, u64, ci, ci, ci, ci, ci, ci, ci,
+                                  vp, vp, u64]
 
 
 def lib() -> ctypes.CDLL:
@@ -579,3 +597,151 @@ def pivco_decode(payload: np.ndarray, n: int,
     if L.zxch_pivco_decode(_ptr(src), len(src), _ptr(cl), n, _ptr(out)) != 0:
         raise ZxcError(ERROR_CORRUPT_DATA, "PivCo section (native)")
     return out
+
+
+def _parse_out(P: int):
+    max_seq = P // 5 + 8
+    return (max_seq, np.empty(max_seq, np.int32), np.empty(max_seq, np.int32),
+            np.empty(max_seq, np.int32))
+
+
+def _parsed(n: int, op, ol, oo, what: str):
+    if n < 0:
+        raise ZxcError(ERROR_OVERFLOW, f"native {what}: sequence buffer")
+    return op[:n], ol[:n], oo[:n]
+
+
+def _emitted(n: int, out: np.ndarray, what: str) -> bytes:
+    if n < 0:
+        raise ZxcError(ERROR_OVERFLOW, f"native {what}: output buffer")
+    return out[:n].tobytes()
+
+
+def find_matches(data: np.ndarray, start: int, max_probes: int):
+    """Native hash-chain match finder (``zxch_find_matches``): the best
+    (lens, offs) int32 candidate of every position of data[start:]."""
+    L = lib()
+    d8 = np.ascontiguousarray(data, np.uint8)
+    P = len(d8) - start
+    lens = np.empty(max(P, 1), np.int32)
+    offs = np.empty(max(P, 1), np.int32)
+    L.zxch_find_matches(_ptr(d8), len(d8), start, max_probes, _ptr(lens),
+                        _ptr(offs))
+    return lens[:P], offs[:P]
+
+
+def lazy_parse(lens: np.ndarray, offs: np.ndarray, lazy: bool,
+               min_emit: int = 5):
+    """Native greedy/lazy parse of per-position candidates: (pos, len, off)
+    int32 arrays."""
+    L = lib()
+    lens32 = np.ascontiguousarray(lens, np.int32)
+    offs32 = np.ascontiguousarray(offs, np.int32)
+    max_seq, op, ol, oo = _parse_out(len(lens32))
+    n = L.zxch_lazy_parse(_ptr(lens32), _ptr(offs32), len(lens32),
+                          1 if lazy else 0, min_emit, _ptr(op), _ptr(ol),
+                          _ptr(oo), max_seq)
+    return _parsed(n, op, ol, oo, "lazy parse")
+
+
+def optimal_parse(lens: np.ndarray, offs: np.ndarray, data: np.ndarray,
+                  lit_cost_bits: np.ndarray, token_bits: int = 8,
+                  only8: bool = False, tok_cost16=None):
+    """DP optimal parse of levels 6-7 (``zxch_optimal_parse``): (pos, len,
+    off) int32 arrays. ``tok_cost16`` prices a token by its match-length
+    nibble (16 uint16 costs); ``only8`` keeps offsets within 256."""
+    L = lib()
+    lens32 = np.ascontiguousarray(lens, np.int32)
+    offs32 = np.ascontiguousarray(offs, np.int32)
+    d8 = np.ascontiguousarray(data, np.uint8)
+    lc = np.ascontiguousarray(lit_cost_bits, np.uint16)
+    tc = (None if tok_cost16 is None
+          else np.ascontiguousarray(tok_cost16, np.uint16))
+    max_seq, op, ol, oo = _parse_out(len(d8))
+    n = L.zxch_optimal_parse(_ptr(lens32), _ptr(offs32), len(d8), _ptr(d8),
+                             _ptr(lc), token_bits, 1 if only8 else 0,
+                             None if tc is None else _ptr(tc), _ptr(op),
+                             _ptr(ol), _ptr(oo), max_seq)
+    return _parsed(n, op, ol, oo, "optimal parse")
+
+
+def find_parse(data: np.ndarray, start: int, max_probes: int, lazy: bool,
+               sufficient_len: int = 0, step_base: int = 1,
+               step_shift: int = 0, cover_base: int = 1,
+               min_emit: int = 5):
+    """Combined native find + parse of levels 1-5 (``zxch_find_parse``):
+    (pos, len, off) int32 arrays relative to ``start``."""
+    L = lib()
+    d8 = np.ascontiguousarray(data, np.uint8)
+    max_seq, op, ol, oo = _parse_out(len(d8) - start)
+    n = L.zxch_find_parse(_ptr(d8), len(d8), start, max_probes,
+                          1 if lazy else 0, sufficient_len, step_base,
+                          step_shift, cover_base, min_emit, _ptr(op),
+                          _ptr(ol), _ptr(oo), max_seq)
+    return _parsed(n, op, ol, oo, "find parse")
+
+
+def encode_ghi(data: np.ndarray, start: int, max_probes: int, lazy: bool,
+               sufficient_len: int = 0, step_base: int = 1,
+               step_shift: int = 0, cover_base: int = 1,
+               min_emit: int = 5) -> bytes:
+    """Fully native GHI payload (find, parse and emit in one call,
+    ``zxch_encode_ghi``)."""
+    L = lib()
+    d8 = np.ascontiguousarray(data, np.uint8)
+    P = len(d8) - start
+    cap = 16 + 24 + P + 4 * (P // 5 + 8) + 8
+    out = np.empty(cap, np.uint8)
+    n = L.zxch_encode_ghi(_ptr(d8), len(d8), start, max_probes,
+                          1 if lazy else 0, sufficient_len, step_base,
+                          step_shift, cover_base, min_emit, _ptr(out), cap)
+    return _emitted(n, out, "GHI encode")
+
+
+def encode_glo(data: np.ndarray, start: int, max_probes: int, lazy: bool,
+               sufficient_len: int = 0, step_base: int = 1,
+               step_shift: int = 0, cover_base: int = 1,
+               min_emit: int = 5, dict_cl: np.ndarray | None = None
+               ) -> bytes:
+    """Fully native GLO payload of levels 1-5 (``zxch_encode_glo``: RAW,
+    RLE and inline-Huffman literal pricing, and the shared table when
+    ``dict_cl`` is given, ``data[:start]`` being the dictionary window)."""
+    L = lib()
+    d8 = np.ascontiguousarray(data, np.uint8)
+    P = len(d8) - start
+    cap = 16 + 32 + 2 * P + 6 * (P // 5 + 8) + 64
+    out = np.empty(cap, np.uint8)
+    cl8 = None if dict_cl is None else np.ascontiguousarray(dict_cl,
+                                                            np.uint8)
+    n = L.zxch_encode_glo(_ptr(d8), len(d8), start, max_probes,
+                          1 if lazy else 0, sufficient_len, step_base,
+                          step_shift, cover_base, min_emit,
+                          None if cl8 is None else _ptr(cl8), _ptr(out), cap)
+    return _emitted(n, out, "GLO encode")
+
+
+def decompress_frame_into(buffer: bytearray, comp_size: int,
+                          block_size: int, has_checksum: bool, verify: bool,
+                          dict_buf: np.ndarray | None = None,
+                          dict_cl: np.ndarray | None = None) -> int:
+    """True single-buffer in-place decode: the archive sits flush-right in
+    ``buffer`` (a bytearray) and its decoded bytes land at
+    ``buffer[0:dsize]``. The caller has checked the in-place margin
+    (``codec.frame.decompress_inplace``), which keeps the write cursor at
+    least 32 bytes behind the archive's read cursor, past the decoder's
+    wild-copy overshoot. Returns dsize; raises ZxcError with the native
+    code on malformed input."""
+    L = lib()
+    n = len(buffer)
+    # buf_t holds the bytearray's export through the call, so a resize
+    # from another thread raises BufferError instead of freeing the memory
+    # the decoder writes
+    buf_t = (ctypes.c_uint8 * n).from_buffer(buffer)
+    base = ctypes.addressof(buf_t)
+    d8, cl8, cl_ptr = _as_dict_args(dict_buf, dict_cl)
+    w = L.zxch_decompress_frame(base + n - comp_size, comp_size, block_size,
+                                1 if has_checksum else 0, 1 if verify else 0,
+                                _ptr(d8), len(d8), cl_ptr, base, n)
+    if w < 0:
+        raise ZxcError(int(w), "native in-place decode")
+    return int(w)
