@@ -669,6 +669,47 @@ def test_compress_device_on_card_equals_cpu(card, level):
     assert Z.codec.frame.decompress(arc) == data
 
 
+def test_compress_device_phases_on_card_never_synchronize(card, monkeypatch,
+                                                          tmp_path):
+    """``compress_device(_phases=...)`` on the card: every span and
+    counter, ``torch.cuda.synchronize`` called zero times, the readback's
+    bytes in their closed form (one group of 16 full blocks and the tail
+    block), and in a ``profiling.trace`` the program's ranges beside the
+    kernels."""
+    import json
+    from zxc_tpu_torch import profiling
+    from zxc_tpu_torch.ops import encode as PE
+    data = (_card_corpus(3) * 3)[:(1 << 20) + 1000]
+    want = Z.ops.compress_device(data, level=3, block_size=65536)
+    calls = []
+    real = torch.cuda.synchronize
+
+    def counted(*a, **k):
+        calls.append(a)
+        return real(*a, **k)
+
+    monkeypatch.setattr(torch.cuda, "synchronize", counted)
+    ph = {}
+    assert Z.ops.compress_device(data, level=3, block_size=65536,
+                                 _phases=ph) == want
+    assert calls == []
+    assert set(ph) == set(PE.PHASES)
+    cap = 65536 // 5 + 1
+    assert ph["d2h_bytes"] == (3 * 16 * cap * 4 + 16 * 4
+                               + 3 * (1000 // 5 + 1) * 4 + 4)
+    monkeypatch.setattr(torch.cuda, "synchronize", real)
+    with profiling.trace(str(tmp_path)) as path:
+        Z.ops.compress_device(data, level=3, block_size=65536, _phases={})
+    with open(path) as f:
+        names = {e["name"] for e in json.load(f)["traceEvents"]
+                 if e.get("ph") == "X"}
+    assert {"zxc.match", "zxc.parse.readback",
+            "zxc.group index=0 blocks=16",
+            "zxc.group index=1 blocks=1"} <= names
+    assert any("lcp_kernel" in n for n in names)
+    assert any("parse_walk_kernel" in n for n in names)
+
+
 def test_cli_device_hints_on_card(card, tmp_path, monkeypatch):
     """The command line on the card: ``-z --device -B 64K --hints`` runs
     lcp and parse_walk once per group of 16 full blocks and once for the

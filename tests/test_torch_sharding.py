@@ -408,6 +408,31 @@ def test_odd_mesh_equals_jax(run3, name):
         assert _equal(res["ok"], results[0]["ok"])
 
 
+PHASE_KEYS = {"decode_plan_sharded": {"pad", "device", "collective",
+                                      "emit"},
+              "decode_plan_dp_sp": {"pad", "device", "collective", "emit"},
+              "compress_sharded": {"device", "emit", "collective", "tail"}}
+
+
+@pytest.mark.parametrize("n,name", [(n, j["name"])
+                                    for n, jobs in ((4, JOBS4), (3, JOBS3))
+                                    for j in jobs if j["op"] in PHASE_KEYS])
+def test_phase_keys_are_the_sharded_paths_own(run3, run4, n, name):
+    """Each sharded call's ``_phases`` holds its own keys, seconds on every
+    rank, and none of the spans or counters of the encode path it runs
+    (the tail's ``encode_chunk_device`` keeps out of ``emit``); a call
+    that raises adds nothing."""
+    run = run3 if n == 3 else run4
+    want = PHASE_KEYS[run["jobs"][name]["op"]]
+    for res in run["got"][name]:
+        if "ok" not in res:
+            assert res["phases"] == {}, name
+            continue
+        assert set(res["phases"]) == want, name
+        assert all(isinstance(v, float) and v >= 0
+                   for v in res["phases"].values())
+
+
 def test_odd_mesh_decodes_the_data(run3):
     assert run3["got"]["dp_pad3"][1]["ok"] == _data()
     assert run3["got"]["dp_sp_pad3"][2]["ok"] == _data(5, 40_000)

@@ -33,9 +33,15 @@ engines and the attic kernel on request),
 ``ops.compress_device`` (device encode) and ``Dctx(device=True)``, a
 reusable context over ``ops.decompress``. ``ops.decompress(...,
 device_entropy=True)`` also decodes the PivCo literal sections on the
-device (``ops.pivco_device``). ``profiling`` collects ``ops.decompress``'s
-phases (``collect_phases``) and records ``torch.profiler`` traces
-(``trace``); ``entry.entry()`` is a compile-and-run check of the batched
+device (``ops.pivco_device``). ``profiling`` holds the program's spans
+and counters: ``span(name, args)`` and ``count(name, n)`` record into the
+collector of the calling thread (one context variable; ``collect_phases``
+installs one) and, where a profiler records the thread, open the range
+``zxc.<name>``, so that a ``torch.profiler`` trace (``trace``) shows
+``compress_device``'s calls, dispatch groups, issue, readback and
+emission beside the card's kernels and copies; without a collector a
+span costs one lookup. ``ops.decompress`` adds its phases to the
+collector; ``entry.entry()`` is a compile-and-run check of the batched
 expansion.
 
 ``parallel`` shards the decode and the encode over ranks of

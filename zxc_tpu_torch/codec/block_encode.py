@@ -14,7 +14,11 @@ matcher of ``ops.encode``) the matcher is skipped. A dictionary
 (``DictState``) prefixes the match window and its shared literal table
 competes in every GLO literal auction. Literal sections are priced with
 the reference's space-speed rule ``J = size + (n_decoded * premium) >> 8``
-and the cheapest wins, so the bytes equal the JAX package's. The JAX
+and the cheapest wins, so the bytes equal the JAX package's. Under a
+``profiling`` collector the emitters record the spans ``emit.streams``
+(sequences to streams, tokens, offsets, extras), ``emit.literals`` (the
+literal section's auction) and ``emit.hufflit`` (the all-literal
+Huffman candidate); level 7's token-section candidate has none. The JAX
 package's numpy matcher and parsers are not copied: without the native
 library these functions raise.
 """
@@ -26,7 +30,7 @@ from dataclasses import dataclass
 import numpy as np
 
 from .. import constants as C
-from .. import runtime
+from .. import profiling, runtime
 from ..format import headers
 from ..format.varint import varint_encode
 from . import huffman
@@ -141,19 +145,22 @@ def _extras_stream(ll: np.ndarray, mlb: np.ndarray, ll_mask: int,
 
 def _sequences_to_streams(data: np.ndarray, m_pos: np.ndarray,
                           m_len: np.ndarray, m_off: np.ndarray):
-    """(ll, ml, off, literals) of a block's sequences."""
+    """(ll, ml, off, literals) of a block's sequences (span
+    ``emit.streams``)."""
     P = len(data)
     if len(m_pos) == 0:
         z = np.zeros(0, np.int64)
         return z, z, z, data
-    prev_end = np.concatenate([[0], m_pos[:-1] + m_len[:-1]])
-    ll = m_pos - prev_end
-    # literal bytes = positions not covered by any match (order-preserving)
-    cover = np.zeros(P + 1, np.int8)
-    np.add.at(cover, m_pos, 1)
-    np.add.at(cover, np.minimum(m_pos + m_len, P), -1)
-    in_match = np.cumsum(cover[:P], dtype=np.int32) > 0
-    return ll, m_len, m_off, data[~in_match]
+    with profiling.span("emit.streams"):
+        prev_end = np.concatenate([[0], m_pos[:-1] + m_len[:-1]])
+        ll = m_pos - prev_end
+        # literal bytes = positions not covered by any match
+        # (order-preserving)
+        cover = np.zeros(P + 1, np.int8)
+        np.add.at(cover, m_pos, 1)
+        np.add.at(cover, np.minimum(m_pos + m_len, P), -1)
+        in_match = np.cumsum(cover[:P], dtype=np.int32) > 0
+        return ll, m_len, m_off, data[~in_match]
 
 
 @dataclass
@@ -313,18 +320,52 @@ def _glo_payload(data: np.ndarray, level: int,
     n_lit = len(literals)
     mlb = ml - C.MIN_MATCH  # token field basis
 
-    tok_ll = np.minimum(ll, C.TOKEN_LL_MASK)
-    tok_ml = np.minimum(mlb, C.TOKEN_ML_MASK)
-    tokens = ((tok_ll << C.TOKEN_LIT_BITS) | tok_ml).astype(np.uint8)
-    extras = _extras_stream(ll, mlb, C.TOKEN_LL_MASK, C.TOKEN_ML_MASK)
+    with profiling.span("emit.streams"):
+        tok_ll = np.minimum(ll, C.TOKEN_LL_MASK)
+        tok_ml = np.minimum(mlb, C.TOKEN_ML_MASK)
+        tokens = ((tok_ll << C.TOKEN_LIT_BITS) | tok_ml).astype(np.uint8)
+        extras = _extras_stream(ll, mlb, C.TOKEN_LL_MASK, C.TOKEN_ML_MASK)
 
-    use_8bit = bool(n_seq == 0 or off.max(initial=1) <= 256)
-    if use_8bit:
-        off_stream = (off - C.OFFSET_BIAS).astype(np.uint8).tobytes()
-    else:
-        off_stream = (off - C.OFFSET_BIAS).astype("<u2").tobytes()
+        use_8bit = bool(n_seq == 0 or off.max(initial=1) <= 256)
+        if use_8bit:
+            off_stream = (off - C.OFFSET_BIAS).astype(np.uint8).tobytes()
+        else:
+            off_stream = (off - C.OFFSET_BIAS).astype("<u2").tobytes()
 
-    # --- literal section candidates, priced J = size + tax ---
+    with profiling.span("emit.literals"):
+        enc_lit, best_stream = _literal_section(literals, level, dict_state)
+
+    # --- token section candidate (ULTRA): Huffman over token bytes ---
+    enc_tok = C.ENC_RAW
+    tok_stream = tokens.tobytes()
+    if level >= 7 and n_seq >= 139:
+        tfreq = np.bincount(tokens, minlength=256)
+        tcl = huffman.build_code_lengths(tfreq,
+                                         level_params(level).max_code_len)
+        if tcl is not None:
+            ttree = huffman.build_tree(tcl)
+            tsize = huffman.calc_size(tfreq, ttree, with_header=True)
+            if tsize + ((n_seq * _prem_huf(level)) >> 8) < n_seq:
+                enc_tok = C.ENC_HUFFMAN
+                tok_stream = (huffman.pack_lengths(tcl)
+                              + huffman.encode_payload(tokens, ttree))
+
+    gh = headers.GnrHeader(n_seq, n_lit, enc_lit, enc_tok, 0,
+                           1 if use_8bit else 0)
+    descs = [(len(best_stream), n_lit),
+             (len(tok_stream), n_seq),
+             (len(off_stream), len(off_stream)),
+             (len(extras), len(extras))]
+    return (headers.write_gnr_header(gh, descs) + best_stream + tok_stream
+            + off_stream + extras)
+
+
+def _literal_section(literals: np.ndarray, level: int,
+                     dict_state: DictState | None) -> tuple[int, bytes]:
+    """The literal section's auction, priced J = size + tax: RAW, RLE,
+    PivCo Huffman with an inline table, and the dictionary's shared table
+    where there is one. Returns (enc_lit, section bytes)."""
+    n_lit = len(literals)
     enc_lit = C.ENC_RAW
     best_j = n_lit
     best_stream = literals.tobytes()
@@ -366,30 +407,7 @@ def _glo_payload(data: np.ndarray, level: int,
                 if j < best_j:
                     enc_lit, best_j = C.ENC_HUFFMAN_DICT, j
                     best_stream = pay
-
-    # --- token section candidate (ULTRA): Huffman over token bytes ---
-    enc_tok = C.ENC_RAW
-    tok_stream = tokens.tobytes()
-    if level >= 7 and n_seq >= 139:
-        tfreq = np.bincount(tokens, minlength=256)
-        tcl = huffman.build_code_lengths(tfreq,
-                                         level_params(level).max_code_len)
-        if tcl is not None:
-            ttree = huffman.build_tree(tcl)
-            tsize = huffman.calc_size(tfreq, ttree, with_header=True)
-            if tsize + ((n_seq * _prem_huf(level)) >> 8) < n_seq:
-                enc_tok = C.ENC_HUFFMAN
-                tok_stream = (huffman.pack_lengths(tcl)
-                              + huffman.encode_payload(tokens, ttree))
-
-    gh = headers.GnrHeader(n_seq, n_lit, enc_lit, enc_tok, 0,
-                           1 if use_8bit else 0)
-    descs = [(len(best_stream), n_lit),
-             (len(tok_stream), n_seq),
-             (len(off_stream), len(off_stream)),
-             (len(extras), len(extras))]
-    return (headers.write_gnr_header(gh, descs) + best_stream + tok_stream
-            + off_stream + extras)
+    return enc_lit, best_stream
 
 
 def encode_block_ghi(data: np.ndarray, level: int,
@@ -410,12 +428,13 @@ def encode_block_ghi(data: np.ndarray, level: int,
     n_seq = len(ml)
     n_lit = len(literals)
     mlb = ml - C.MIN_MATCH
-    w_ll = np.minimum(ll, C.SEQ_LL_MASK)
-    w_ml = np.minimum(mlb, C.SEQ_ML_MASK)
-    words = ((w_ll.astype(np.uint32) << 24)
-             | (w_ml.astype(np.uint32) << 16)
-             | (off - C.OFFSET_BIAS).astype(np.uint32)).astype("<u4")
-    extras = _extras_stream(ll, mlb, C.SEQ_LL_MASK, C.SEQ_ML_MASK)
+    with profiling.span("emit.streams"):
+        w_ll = np.minimum(ll, C.SEQ_LL_MASK)
+        w_ml = np.minimum(mlb, C.SEQ_ML_MASK)
+        words = ((w_ll.astype(np.uint32) << 24)
+                 | (w_ml.astype(np.uint32) << 16)
+                 | (off - C.OFFSET_BIAS).astype(np.uint32)).astype("<u4")
+        extras = _extras_stream(ll, mlb, C.SEQ_LL_MASK, C.SEQ_ML_MASK)
     gh = headers.GnrHeader(n_seq, n_lit, C.ENC_RAW, C.ENC_RAW, 0, 0)
     lit_stream = literals.tobytes()
     seq_stream = words.tobytes()
@@ -469,7 +488,8 @@ def encode_chunk(data: np.ndarray, level: int,
         if no_dict:
             budget = min(len(payload),
                          max(len(data) - C.BLOCK_HEADER_SIZE, 0))
-            hl = encode_block_hufflit(data, budget)
+            with profiling.span("emit.hufflit"):
+                hl = encode_block_hufflit(data, budget)
             if hl is not None:
                 payload, btype = hl, C.BLOCK_GLO
     elif level <= 5:
@@ -478,7 +498,8 @@ def encode_chunk(data: np.ndarray, level: int,
         payload = encode_block_glo(data, level, dict_state, sequences)
         btype = C.BLOCK_GLO
         budget = min(len(payload), max(len(data) - C.BLOCK_HEADER_SIZE, 0))
-        hl = encode_block_hufflit(data, budget)
+        with profiling.span("emit.hufflit"):
+            hl = encode_block_hufflit(data, budget)
         if hl is not None:
             payload = hl
     else:

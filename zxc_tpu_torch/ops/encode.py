@@ -28,13 +28,14 @@ archives equal the JAX package's byte for byte.
 """
 from __future__ import annotations
 
+import itertools
 import os
-import time
 
 import numpy as np
 import torch
 
 from .. import constants as C
+from .. import profiling
 from ..codec import block_encode
 from ..codec.frame import level_params
 from ..format import headers
@@ -371,67 +372,71 @@ def _extend_capped_host(arr: np.ndarray, pos, lns, off):
             np.asarray(o_off, np.int64))
 
 
-class _Clock:
-    """Adds wall time per phase into ``out`` (when given), synchronising
-    the device at each boundary so a phase holds its own device work."""
-
-    def __init__(self, out: dict | None, dev: torch.device):
-        self.out, self.dev = out, dev
-        self.t = time.perf_counter()
-
-    def __call__(self, name: str) -> None:
-        if self.out is None:
-            return
-        if self.dev.type == "cuda":
-            torch.cuda.synchronize(self.dev)
-        t = time.perf_counter()
-        self.out[name] = self.out.get(name, 0.0) + t - self.t
-        self.t = t
+# The keys ``compress_device`` adds into its ``_phases`` dict: spans, then
+# the counter (its docstring says what each holds).
+PHASES = ("frame", "match", "parse", "parse.issue", "parse.readback",
+          "emit", "emit.cap", "emit.streams", "emit.literals",
+          "emit.hufflit", "d2h_bytes")
+_calls = itertools.count()
 
 
 def _host_seqs(n_seq, pos, lns, off):
     """Sequences of B blocks to the host in one copy: a list of
-    (pos, len, off) int64 arrays, each cut to its block's count."""
-    host = torch.stack([pos, lns, off]).cpu().numpy().astype(np.int64)
-    counts = n_seq.cpu().numpy()
-    return [tuple(host[i, j, :int(counts[j])] for i in range(3))
-            for j in range(len(counts))]
+    (pos, len, off) int64 arrays, each cut to its block's count. Under
+    ``parse.readback``: the stack, the two host waits (the stacked copy,
+    then the counts) and the cut; ``d2h_bytes`` counts both copies."""
+    with profiling.span("parse.readback"):
+        stacked = torch.stack([pos, lns, off])
+        host = stacked.cpu().numpy().astype(np.int64)
+        counts = n_seq.cpu().numpy()
+        seqs = [tuple(host[i, j, :int(counts[j])] for i in range(3))
+                for j in range(len(counts))]
+    profiling.count("d2h_bytes", stacked.nbytes + n_seq.nbytes)
+    return seqs
+
+
+def _group_seqs(blocks: np.ndarray, dev: torch.device, params,
+                use_lcp: bool) -> list:
+    """Match and parse of a (B, n) group of blocks on ``dev`` (B is 1 off
+    the LCP matcher), and its sequences on the host (``_host_seqs``)."""
+    with profiling.span("match"):
+        d = torch.from_numpy(np.array(blocks, np.uint8)).to(dev)
+        if use_lcp:
+            lens, offs = find_matches_device_lcp_batch(d, params.n_candidates)
+        else:
+            lens, offs = find_matches_device(d[0], params.n_candidates)
+    with profiling.span("parse"):
+        with profiling.span("parse.issue"):
+            if use_lcp:
+                out = _walk_compact(lens, offs, params.lazy, params.min_emit)
+            else:
+                out = tuple(t[None] for t in parse_compact_device(
+                    lens, offs, params.lazy, params.min_emit))
+        return _host_seqs(*out)
 
 
 def _encode_block(arr, level: int, checksum: bool, seqs, capped: bool):
-    if capped and len(seqs[0]):
-        seqs = _extend_capped_host(arr, *seqs)
-    return block_encode.encode_chunk(arr, level, checksum=checksum,
-                                     sequences=seqs)
+    with profiling.span("emit"):
+        if capped and len(seqs[0]):
+            with profiling.span("emit.cap"):
+                seqs = _extend_capped_host(arr, *seqs)
+        return block_encode.encode_chunk(arr, level, checksum=checksum,
+                                         sequences=seqs)
 
 
 def encode_chunk_device(data: bytes | np.ndarray, level: int, device=None,
-                        checksum: bool = False, _clock=None) -> bytes:
+                        checksum: bool = False) -> bytes:
     """One block with match finding and parse on ``device`` (None means
     cuda) and emission on the host: block header, payload (and checksum).
-    No dictionary on this path."""
+    No dictionary on this path. One dispatch group of one block, under
+    the spans and counter of ``compress_device``."""
     dev = _device(device, "encode_chunk_device")
-    clock = _clock or _Clock(None, dev)
     arr = (data if isinstance(data, np.ndarray)
            else np.frombuffer(data, np.uint8))
     params = level_params(level)
-    d = torch.from_numpy(np.array(arr, np.uint8)).to(dev)
     use_lcp = len(arr) <= EK.MAX_BLOCK and _matcher() == "lcp"
-    if use_lcp:
-        lens, offs = find_matches_device_lcp_batch(d[None],
-                                                   params.n_candidates)
-        clock("match")
-        out = _walk_compact(lens, offs, params.lazy, params.min_emit)
-    else:
-        lens, offs = find_matches_device(d, params.n_candidates)
-        clock("match")
-        out = tuple(t[None] for t in parse_compact_device(
-            lens, offs, params.lazy, params.min_emit))
-    (seqs,) = _host_seqs(*out)
-    clock("parse")
-    blk = _encode_block(arr, level, checksum, seqs, use_lcp)
-    clock("emit")
-    return blk
+    (seqs,) = _group_seqs(arr[None], dev, params, use_lcp)
+    return _encode_block(arr, level, checksum, seqs, use_lcp)
 
 
 def compress_device(data: bytes, level: int = C.LEVEL_DEFAULT,
@@ -445,47 +450,66 @@ def compress_device(data: bytes, level: int = C.LEVEL_DEFAULT,
     full blocks go in dispatch groups of up to 16 (one LCP and one
     parse-walk launch a group); the tail block, the XLA matcher and the
     CPU go block by block. The archive is the same bytes whichever route a
-    block took, and equals ``zxc_tpu.ops.compress_device``'s. ``_phases``
-    (a dict) receives seconds per phase: ``match`` (prep and LCP),
-    ``parse`` (walk, compaction and readback), ``emit`` (host emission)
-    and ``frame``."""
+    block took, and equals ``zxc_tpu.ops.compress_device``'s.
+
+    The call records ``profiling`` spans and a counter, and never
+    synchronises the card for them. ``_phases`` (a dict) receives those
+    of ``PHASES``, recorded in a collector of the call's own; without it
+    they go to the installed collector, if any. Spans, in seconds:
+    ``frame`` (block split, framing, the global hash); ``match`` (the
+    group's copy to the device, the hashes, sort and candidates, the LCP
+    launch and the best of K: host seconds issuing work, except that the
+    copy from pageable memory waits for the card's stream, and the XLA
+    matcher's masked gathers size their outputs on the host);
+    ``parse``, whose children are ``parse.issue`` (steps, the walk, the
+    compaction gathers) and ``parse.readback`` (the stack, the host's
+    wait until the group's queued work ends and its sequences are
+    copied, then their cut into blocks); ``emit``, a block's host
+    emission, whose children are ``emit.cap`` (sequences at the LCP cap
+    extended), ``emit.streams``, ``emit.literals`` and ``emit.hufflit``
+    (``codec.block_encode``). The counter ``d2h_bytes`` holds the bytes
+    of every tensor the readback copies, on any device. The call's range
+    in a profiler trace, ``compress_device``, carries the plaintext bytes
+    and a call number of the process, and each group's range, ``group``,
+    its index and block count."""
     dev = _device(device, "compress_device")
     C.block_size_code(block_size)  # validate
-    clock = _Clock(_phases, dev)
     params = level_params(level)
     n_full = len(data) // block_size
     use_batch = (n_full >= 2 and block_size <= EK.MAX_BLOCK
                  and _matcher() == "lcp" and dev.type == "cuda")
     blk_bytes: list[bytes] = []
     start = 0
-    if use_batch:
-        start = n_full * block_size
-        blocks = np.frombuffer(data, np.uint8, start).reshape(n_full,
-                                                              block_size)
-        clock("frame")
-        for g0 in range(0, n_full, DISPATCH):
-            grp = blocks[g0:g0 + DISPATCH]
-            db = torch.from_numpy(np.array(grp)).to(dev)
-            lens, offs = find_matches_device_lcp_batch(db,
-                                                       params.n_candidates)
-            clock("match")
-            seqs = _host_seqs(*_walk_compact(lens, offs, params.lazy,
-                                             params.min_emit))
-            clock("parse")
-            blk_bytes += [_encode_block(grp[j], level, checksum, seqs[j],
-                                        True) for j in range(len(grp))]
-            clock("emit")
-    for pos in range(start, len(data), block_size):
-        blk_bytes.append(encode_chunk_device(
-            data[pos:pos + block_size], level, dev, checksum, clock))
-    out = bytearray(headers.write_file_header(block_size, checksum))
-    global_hash = 0
-    for blk in blk_bytes:
-        if checksum:
-            global_hash = global_hash_update(
-                global_hash, int.from_bytes(blk[-4:], "little"))
-        out += blk
-    out += headers.write_block_header(C.BLOCK_EOF, 0)
-    out += headers.write_file_footer(len(data), global_hash, checksum)
-    clock("frame")
+    group = itertools.count()
+    with profiling.collect_into(_phases, PHASES), profiling.span(
+            "compress_device", {"bytes": len(data), "call": next(_calls)}):
+        if use_batch:
+            with profiling.span("frame"):
+                start = n_full * block_size
+                blocks = np.frombuffer(data, np.uint8, start).reshape(
+                    n_full, block_size)
+            for g0 in range(0, n_full, DISPATCH):
+                grp = blocks[g0:g0 + DISPATCH]
+                with profiling.span("group", {"index": next(group),
+                                              "blocks": len(grp)}):
+                    seqs = _group_seqs(grp, dev, params, True)
+                    blk_bytes += [_encode_block(grp[j], level, checksum,
+                                                seqs[j], True)
+                                  for j in range(len(grp))]
+        for pos in range(start, len(data), block_size):
+            with profiling.span("group", {"index": next(group),
+                                          "blocks": 1}):
+                blk_bytes.append(encode_chunk_device(
+                    data[pos:pos + block_size], level, dev, checksum))
+        with profiling.span("frame"):
+            out = bytearray(headers.write_file_header(block_size, checksum))
+            global_hash = 0
+            for blk in blk_bytes:
+                if checksum:
+                    global_hash = global_hash_update(
+                        global_hash, int.from_bytes(blk[-4:], "little"))
+                out += blk
+            out += headers.write_block_header(C.BLOCK_EOF, 0)
+            out += headers.write_file_footer(len(data), global_hash,
+                                             checksum)
     return bytes(out)

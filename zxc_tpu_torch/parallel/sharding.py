@@ -24,6 +24,7 @@ gloo and NCCL both take, with the tensors on the mesh's device.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 
 import numpy as np
@@ -32,6 +33,7 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
 from .. import constants as C
+from .. import profiling
 from ..codec import block_encode
 from ..codec.frame import level_params
 from ..format import headers
@@ -42,6 +44,8 @@ from ..ops.batch import FramePlan, _pad_batch, _raise_errbits, _pow2
 from ..ops.device_pipeline import _device
 
 _I32 = torch.int32
+_DECODE_PHASES = ("pad", "device", "collective", "emit")
+_ENCODE_PHASES = ("device", "emit", "collective", "tail")
 
 
 def make_mesh(device=None, axes: tuple[str, ...] = ("dp",),
@@ -138,14 +142,16 @@ def decode_plan_sharded(plan: FramePlan, mesh: DeviceMesh,
     sequences, ``off`` 1), each rank expands its rows, and the error
     words and then the outputs are gathered in batch order. The
     dictionary, when the plan has one, is padded on every rank's device
-    (JAX replicates it). ``_phases`` (a dict) receives seconds of
-    ``pad``, ``device``, ``collective`` and ``emit``."""
+    (JAX replicates it). ``_phases`` (a dict) receives the seconds of
+    the ``profiling`` spans ``pad`` (the batch padded and copied to the
+    device), ``device`` (the expansion issued), ``collective`` (the
+    gathers, with the host's wait on the card's work: nothing
+    synchronises the card before them) and ``emit``."""
     _check_plan(plan, "decode_plan_sharded")
     nb = plan.n_blocks
     if nb == 0:
         return b""
     dev = mesh_device(mesh)
-    clock = ENC._Clock(_phases, dev)
     has_dict = plan.dict_buf is not None
     ndev = _size(mesh, dp_axis)
     if batch is None:
@@ -157,23 +163,25 @@ def decode_plan_sharded(plan: FramePlan, mesh: DeviceMesh,
                  if has_dict else ())
 
     out_parts: list[np.ndarray] = []
-    for base in range(0, nb, batch):
-        n = min(base + batch, nb) - base
-        pad_to = ((n + ndev - 1) // ndev) * ndev
-        lo, hi = _rows(pad_to, mesh, dp_axis)
-        rows = range(base + min(lo, n), base + min(hi, n))
-        host = _pad_batch(plan, rows, S, L, B=hi - lo)
-        args = _to(host, dev)
-        clock("pad")
-        out, _, err = kern(*args, *dict_args)
-        clock("device")
-        err_all = all_gather(err, mesh, dp_axis)[:n].cpu().numpy()
-        clock("collective")
-        _raise_first(err_all)
-        out_all = all_gather(out, mesh, dp_axis).cpu().numpy()
-        clock("collective")
-        out_parts += [out_all[j, :plan.totals[base + j]] for j in range(n)]
-        clock("emit")
+    with profiling.collect_into(_phases, _DECODE_PHASES):
+        for base in range(0, nb, batch):
+            n = min(base + batch, nb) - base
+            pad_to = ((n + ndev - 1) // ndev) * ndev
+            lo, hi = _rows(pad_to, mesh, dp_axis)
+            rows = range(base + min(lo, n), base + min(hi, n))
+            with profiling.span("pad"):
+                host = _pad_batch(plan, rows, S, L, B=hi - lo)
+                args = _to(host, dev)
+            with profiling.span("device"):
+                out, _, err = kern(*args, *dict_args)
+            with profiling.span("collective"):
+                err_all = all_gather(err, mesh, dp_axis)[:n].cpu().numpy()
+            _raise_first(err_all)
+            with profiling.span("collective"):
+                out_all = all_gather(out, mesh, dp_axis).cpu().numpy()
+            with profiling.span("emit"):
+                out_parts += [out_all[j, :plan.totals[base + j]]
+                              for j in range(n)]
     return np.concatenate(out_parts).tobytes()
 
 
@@ -272,13 +280,13 @@ def decode_plan_dp_sp(plan: FramePlan, mesh: DeviceMesh, *,
     call on a batch padded to a multiple of dp (the JAX package's
     demonstration path; ``decode_plan_sharded`` is the production one).
     As in JAX, no dictionary is passed: a match into a dictionary raises
-    the offset error. ``_phases`` as in ``decode_plan_sharded``."""
+    the offset error. ``_phases`` as in ``decode_plan_sharded``
+    (``device`` holds the step's own gathers over sp)."""
     _check_plan(plan, "decode_plan_dp_sp")
     nb = plan.n_blocks
     if nb == 0:
         return b""
     dev = mesh_device(mesh)
-    clock = ENC._Clock(_phases, dev)
     ndp = _size(mesh, "dp")
     n_sp = _size(mesh, "sp")
     S = _pow2(plan.max_seq)
@@ -286,22 +294,23 @@ def decode_plan_dp_sp(plan: FramePlan, mesh: DeviceMesh, *,
     B = ((nb + ndp - 1) // ndp) * ndp
     kern = dp_sp_kernel(plan.block_size, mesh)
     lo, hi = _rows(B, mesh, "dp")
-    host = _pad_batch(plan, range(min(lo, nb), min(hi, nb)), S, L,
-                      B=hi - lo)
-    args = _to(host, dev)
-    clock("pad")
-    out, _, err = kern(*args)
-    clock("device")
-    err_all = all_gather(err, mesh, "dp")[:nb].cpu().numpy()
-    clock("collective")
-    _raise_first(err_all)
-    rows = all_gather(out, mesh, "sp").view(n_sp, hi - lo, -1)
-    rows = rows.transpose(0, 1).reshape(hi - lo, plan.block_size)
-    out_np = all_gather(rows, mesh, "dp").cpu().numpy()
-    clock("collective")
-    data = np.concatenate([out_np[i, :plan.totals[i]]
-                           for i in range(nb)]).tobytes()
-    clock("emit")
+    with profiling.collect_into(_phases, _DECODE_PHASES):
+        with profiling.span("pad"):
+            host = _pad_batch(plan, range(min(lo, nb), min(hi, nb)), S, L,
+                              B=hi - lo)
+            args = _to(host, dev)
+        with profiling.span("device"):
+            out, _, err = kern(*args)
+        with profiling.span("collective"):
+            err_all = all_gather(err, mesh, "dp")[:nb].cpu().numpy()
+        _raise_first(err_all)
+        with profiling.span("collective"):
+            rows = all_gather(out, mesh, "sp").view(n_sp, hi - lo, -1)
+            rows = rows.transpose(0, 1).reshape(hi - lo, plan.block_size)
+            out_np = all_gather(rows, mesh, "dp").cpu().numpy()
+        with profiling.span("emit"):
+            data = np.concatenate([out_np[i, :plan.totals[i]]
+                                   for i in range(nb)]).tobytes()
     return data
 
 
@@ -376,34 +385,40 @@ def compress_sharded(data: bytes, mesh: DeviceMesh, level: int = 3,
     are gathered in order. The remaining blocks (the tail, and full
     blocks that do not fill the mesh) go through ``encode_chunk_device``
     on every rank alike. The archive equals the JAX package's
-    ``compress_sharded``. ``_phases`` (a dict) receives seconds of
-    ``device`` (match and parse), ``emit``, ``collective`` and ``tail``."""
+    ``compress_sharded``. ``_phases`` (a dict) receives the seconds of
+    the ``profiling`` spans ``device`` (match and parse, up to the
+    sequences' readback, where the host waits on the card's work),
+    ``emit``, ``collective`` and ``tail``."""
     C.block_size_code(block_size)
     dev = mesh_device(mesh)
-    clock = ENC._Clock(_phases, dev)
     ndp = _size(mesh, dp_axis)
     n_full = len(data) // block_size
     n_batch = (n_full // ndp) * ndp
     blks: list[bytes] = []
-    if n_batch:
-        blocks = np.frombuffer(data, np.uint8,
-                               n_batch * block_size).reshape(n_batch,
-                                                             block_size)
-        lo, hi = _rows(n_batch, mesh, dp_axis)
-        seqs = ENC._host_seqs(*_match_parse(
-            _rank_blocks(blocks, lo, hi, mesh), level))
-        clock("device")
-        local = [block_encode.encode_chunk(blocks[lo + j], level,
-                                           checksum=checksum,
-                                           sequences=seqs[j])
-                 for j in range(hi - lo)]
-        clock("emit")
-        blks = _gather_bytes(local, mesh, dp_axis)
-        clock("collective")
-    for pos in range(n_batch * block_size, len(data), block_size):
-        blks.append(ENC.encode_chunk_device(data[pos:pos + block_size],
-                                            level, dev, checksum))
-    clock("tail")
+    with profiling.collect_into(_phases, _ENCODE_PHASES) as col:
+        if n_batch:
+            blocks = np.frombuffer(data, np.uint8,
+                                   n_batch * block_size).reshape(n_batch,
+                                                                 block_size)
+            lo, hi = _rows(n_batch, mesh, dp_axis)
+            with profiling.span("device"):
+                seqs = ENC._host_seqs(*_match_parse(
+                    _rank_blocks(blocks, lo, hi, mesh), level))
+            with profiling.span("emit"):
+                local = [block_encode.encode_chunk(blocks[lo + j], level,
+                                                   checksum=checksum,
+                                                   sequences=seqs[j])
+                         for j in range(hi - lo)]
+            with profiling.span("collective"):
+                blks = _gather_bytes(local, mesh, dp_axis)
+        # the tail's own spans go to a collector apart, so that ``emit``
+        # holds the sharded blocks alone
+        apart = (profiling.collect_phases() if col is not None
+                 else contextlib.nullcontext())
+        with profiling.span("tail"), apart:
+            for pos in range(n_batch * block_size, len(data), block_size):
+                blks.append(ENC.encode_chunk_device(
+                    data[pos:pos + block_size], level, dev, checksum))
     out = bytearray(headers.write_file_header(block_size, checksum))
     global_hash = 0
     for blk in blks:
