@@ -697,6 +697,8 @@ def test_compress_device_phases_on_card_never_synchronize(card, monkeypatch,
     cap = 65536 // 5 + 1
     assert ph["d2h_bytes"] == (3 * 16 * cap * 4 + 16 * 4
                                + 3 * (1000 // 5 + 1) * 4 + 4)
+    # the dispatch group's blocks and the tail, all by the native emitter
+    assert ph["emit.native_bytes"] == len(data)
     monkeypatch.setattr(torch.cuda, "synchronize", real)
     with profiling.trace(str(tmp_path)) as path:
         Z.ops.compress_device(data, level=3, block_size=65536, _phases={})

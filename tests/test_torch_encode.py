@@ -25,6 +25,8 @@ from zxc_tpu.ops import encode as JE, pallas_encode as JPE
 import zxc_tpu_torch as Z
 from zxc_tpu_torch import runtime as prt
 from zxc_tpu_torch.codec import block_encode as pbe, huffman as phuf
+from zxc_tpu_torch.constants import BLOCK_GLO, BLOCK_RAW
+from zxc_tpu_torch.errors import ZxcError
 from zxc_tpu_torch.format import headers as phdr, varint as pvar
 from zxc_tpu_torch.ops import encode as PE, encode_kernels as EK
 
@@ -494,6 +496,11 @@ def test_extend_capped_host_equals_jax(seed):
     got = PE._extend_capped_host(arr, *seqs)
     for a, b in zip(want, got):
         assert np.array_equal(a, b)
+    # the native emitter's extension: GHI (level 1) writes every sequence
+    # as it is, GLO (level 3) through its streams
+    for level in (1, 3):
+        native, _ = prt.emit_block(arr, level, False, *seqs, cap_len=EK.CAP)
+        assert native == pbe.encode_chunk_plain(arr, level, sequences=got)
 
 
 # ---------------------------------------------------------------------------
@@ -517,6 +524,116 @@ def test_encode_chunk_on_sequences_equals_jax(corpus, level, checksum):
     got = pbe.encode_chunk(arr, level, None, checksum, sequences=seqs)
     assert got == jbe.encode_chunk(arr, level, None, checksum,
                                    sequences=seqs)
+
+
+def _native_plain_jax(arr, level, checksum, seqs, cap_len=0):
+    """The native block emitter's block, checked against the Python
+    emitters' and the JAX package's on the same (extended) sequences."""
+    got, stages = prt.emit_block(arr, level, checksum, *seqs,
+                                 cap_len=cap_len)
+    ext = PE._extend_capped_host(arr, *seqs) if cap_len else seqs
+    assert got == pbe.encode_chunk_plain(arr, level, None, checksum,
+                                         sequences=ext)
+    assert got == jbe.encode_chunk(arr, level, None, checksum,
+                                   sequences=ext)
+    assert stages.shape == (4,) and (stages >= 0).all()
+    return got
+
+
+@pytest.mark.parametrize("checksum", [False, True])
+@pytest.mark.parametrize("level", [1, 2, 3, 4, 5, 6, 7])
+@pytest.mark.parametrize("corpus", ["words", "mix", "runs", "random"])
+def test_native_block_emitter_equals_python_and_jax(corpus, level,
+                                                    checksum):
+    data = (_words(level, 20000) if corpus == "words"
+            else _corpora()[corpus])
+    arr = np.frombuffer(data, np.uint8)
+    blk = _native_plain_jax(arr, level, checksum, _host_seqs(arr, level))
+    assert pbe.encode_chunk(arr, level, None, checksum,
+                            sequences=_host_seqs(arr, level)) == blk
+
+
+@pytest.mark.parametrize("level", [1, 2, 3, 4, 5, 6, 7])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_native_block_emitter_on_capped_sequences(seed, level):
+    """The LCP matcher's sequences, capped at 256, extended in the call."""
+    arr = np.frombuffer(b"x" * 100 + (b"abcdefg" * 2000)[:9000 + seed]
+                        + _words(seed, 3000), np.uint8)
+    lens, offs = PE.find_matches_device_lcp(_t(arr), 4)
+    k, pos, lns, off = PE.parse_compact_walk(lens, offs, False)
+    seqs = tuple(a[:int(k)].numpy().astype(np.int64)
+                 for a in (pos, lns, off))
+    assert (seqs[1] >= EK.CAP).any()
+    _native_plain_jax(arr, level, True, seqs, cap_len=EK.CAP)
+    assert (pbe.encode_chunk(arr, level, checksum=True, sequences=seqs,
+                             cap_len=EK.CAP)
+            == prt.emit_block(arr, level, True, *seqs, cap_len=EK.CAP)[0])
+
+
+_NO_SEQS = tuple(np.zeros(0, np.int64) for _ in range(3))
+
+
+@pytest.mark.parametrize("level", [1, 2, 3, 4, 5, 6, 7])
+@pytest.mark.parametrize("corpus", ["text", "random"])
+def test_native_block_emitter_without_sequences(corpus, level):
+    """An empty sequence list: all literals, Huffman-coded in a GLO block
+    (text), or RAW where nothing wins over the plaintext (random
+    bytes)."""
+    arr = np.frombuffer(_corpora()[corpus][:9000], np.uint8)
+    blk = _native_plain_jax(arr, level, True, _NO_SEQS)
+    assert phdr.read_block_header(blk).block_type == (
+        BLOCK_RAW if corpus == "random" else BLOCK_GLO)
+
+
+@pytest.mark.parametrize("level", [1, 3, 6])
+def test_native_block_emitter_falls_back_to_raw(level):
+    """Sequences that cost more than they save: the block goes RAW."""
+    rng = np.random.default_rng(level)
+    arr = rng.integers(0, 256, 6000).astype(np.uint8)
+    arr[3000:3006] = arr[1000:1006]
+    seqs = (np.array([3000]), np.array([6]), np.array([2000]))
+    blk = _native_plain_jax(arr, level, False, seqs)
+    assert phdr.read_block_header(blk).block_type == BLOCK_RAW
+    assert blk[8:] == arr.tobytes()
+
+
+@pytest.mark.parametrize("level", [1, 3, 7])
+@pytest.mark.parametrize("tail", [1, 5, 4099])
+def test_native_block_emitter_on_tail_blocks(tail, level):
+    arr = np.frombuffer(_words(tail, tail), np.uint8)
+    _native_plain_jax(arr, level, True, _host_seqs(arr, level))
+
+
+@pytest.mark.parametrize("level", [6, 7])
+def test_native_block_emitter_on_tokens_of_one_value(level):
+    """Every sequence the same token byte (runs of one length after one
+    literal): the level-7 token section is a Huffman code of one symbol,
+    one bit a token."""
+    rng = np.random.default_rng(5)
+    arr = np.repeat(rng.permutation(256).astype(np.uint8), 40)
+    seqs = _host_seqs(arr, level)
+    toks = (np.minimum(seqs[0] - np.concatenate(
+        [[0], (seqs[0] + seqs[1])[:-1]]), 15) << 4) | np.minimum(
+        seqs[1] - 5, 15)
+    assert len(np.unique(toks)) == 1 and len(toks) >= 139
+    _native_plain_jax(arr, level, False, seqs)
+
+
+@pytest.mark.parametrize("bad,code", [
+    ((np.array([10, 8]), np.array([6, 6]), np.array([1, 1])), -8),
+    ((np.array([10]), np.array([4]), np.array([1])), -8),
+    ((np.array([95]), np.array([6]), np.array([1])), -8),
+    ((np.array([10]), np.array([6]), np.array([11])), -9),
+    ((np.array([10]), np.array([6]), np.array([0])), -9),
+])
+def test_native_block_emitter_refuses_bad_sequences(bad, code):
+    arr = np.zeros(100, np.uint8)
+    with pytest.raises(ZxcError) as e:
+        prt.emit_block(arr, 3, False, *bad)
+    assert e.value.code == code
+    with pytest.raises(ValueError):
+        pbe.encode_chunk(arr, 3, pbe.DictState(arr[:0]), sequences=bad,
+                         cap_len=EK.CAP)
 
 
 def test_extras_stream_equals_varints_one_by_one():
@@ -562,7 +679,7 @@ def _same_archive(data: bytes, **kw) -> bytes:
 
 
 @pytest.mark.parametrize("block_size", [16384, 65536])
-@pytest.mark.parametrize("level", [1, 2, 3, 5])
+@pytest.mark.parametrize("level", [1, 2, 3, 4, 5])
 def test_compress_device_equals_jax(level, block_size):
     _same_archive(_mixed(45000), level=level, block_size=block_size,
                   checksum=True)
@@ -612,7 +729,8 @@ def test_compress_device_launches_nothing_on_the_cpu():
     assert (EK.lcp.launches, EK.parse_walk.launches) == before
     assert set(ph) == {"frame", "match", "parse", "parse.issue",
                        "parse.readback", "emit", "emit.cap", "emit.streams",
-                       "emit.literals", "emit.hufflit", "d2h_bytes"}
+                       "emit.literals", "emit.hufflit", "d2h_bytes",
+                       "emit.native_bytes"}
 
 
 def test_compress_device_needs_cuda_or_cpu():

@@ -299,12 +299,16 @@ def test_build_cache_rebuilds_on_source_change(tmp_path, monkeypatch):
 
 def test_native_source_is_a_verbatim_copy():
     # the port keeps its own copy of the JAX package's native host runtime;
-    # a one-sided edit would make the two packages' prep drift apart
+    # a one-sided edit would make the two packages' prep drift apart. The
+    # port's own entries follow the copy, after a banner that says so.
     with open(os.path.join(PKG, "runtime", "zxc_host.cpp"), "rb") as f:
         port = f.read()
     with open(os.path.join(ROOT, "zxc_tpu", "runtime", "zxc_host.cpp"),
               "rb") as f:
-        assert port == f.read()
+        jax_src = f.read()
+    banner = b"\n// " + b"=" * 75 + b"\n// The port's own entries."
+    assert port.count(banner) == 1
+    assert port[:port.index(banner)] == jax_src
 
 
 def test_group_from_numpy_keeps_bits():

@@ -207,6 +207,7 @@ def _files():
         "enc.bin": _enc_data(),
         "enc8.bin": _enc_data()[:8 * 8192],
         "enc6.bin": _enc_data()[:6 * 8192],
+        "enc4k.bin": _enc_data()[:4 * 4096 + 100],
     }
 
 
@@ -241,6 +242,10 @@ JOBS4 = [
          block_size=8192, level=3, axes=["dp"], shape=[4]),
     dict(name="compress", op="compress_sharded", input="enc.bin",
          block_size=16384, level=3, checksum=True, axes=["dp"], shape=[4]),
+    dict(name="compress_l1", op="compress_sharded", input="enc8.bin",
+         block_size=8192, level=1, checksum=True, axes=["dp"], shape=[4]),
+    dict(name="compress_l6", op="compress_sharded", input="enc4k.bin",
+         block_size=4096, level=6, checksum=False, axes=["dp"], shape=[4]),
     dict(name="corrupt_plan", op="decode_plan_sharded", archive="words.zxc",
          tamper=TAMPER, axes=["dp"], shape=[4]),
     dict(name="corrupt_plan_dp_sp", op="decode_plan_dp_sp",
@@ -331,7 +336,8 @@ def test_decode_equals_jax(run4, name):
     assert run4["got"][name][0]["ok"] == plain
 
 
-@pytest.mark.parametrize("name", ["encode_blocks", "compress"])
+@pytest.mark.parametrize("name", ["encode_blocks", "compress",
+                                  "compress_l1", "compress_l6"])
 def test_encode_equals_jax(run4, name):
     _check_same_as_jax(run4, name)
 

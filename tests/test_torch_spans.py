@@ -45,8 +45,9 @@ def test_compress_device_phases_hold_every_key():
     assert Z.decompress(arc) == data
     assert set(ph) == set(PE.PHASES)
     assert all(isinstance(ph[k], float) and ph[k] >= 0
-               for k in PE.PHASES[:-1])
+               for k in PE.PHASES[:-2])
     assert isinstance(ph["d2h_bytes"], int) and ph["d2h_bytes"] > 0
+    assert ph["emit.native_bytes"] == len(data)
 
 
 def test_parents_hold_their_children():
@@ -74,7 +75,8 @@ def test_counters_equal_closed_forms_and_the_archive(tail):
     assert Z.decompress(arc) == data
     sizes = [BLOCK] * 6 + ([tail] if tail else [])
     cap = [n // 5 + 1 for n in sizes]
-    assert col.counters == {"d2h_bytes": sum(3 * 4 * c + 4 for c in cap)}
+    assert col.counters == {"d2h_bytes": sum(3 * 4 * c + 4 for c in cap),
+                            "emit.native_bytes": len(data)}
     plan = Z.ops.plan_frame(arc)
     assert (col.counts["group"] == col.counts["parse.readback"]
             == col.counts["emit"] == plan.n_blocks == len(sizes))
@@ -95,23 +97,65 @@ def test_phases_dict_keeps_out_of_an_outer_collector():
     assert m["d2h_bytes"] == {"count": 3 * (3 * 4 * (BLOCK // 5 + 1) + 4)}
 
 
-@pytest.mark.parametrize("level", [1, 3])
+@pytest.mark.parametrize("level", [1, 3, 7])
 def test_host_encoder_records_emit_spans_in_a_collector(level):
     """``codec.block_encode`` on given sequences records the emission's
-    spans in a collector of its thread."""
+    spans in a collector of its thread: without a dictionary the native
+    emitter's four stage clocks, one call each (a stage that does not
+    run at the level reads zero), and its bytes; the Python emitters
+    their own spans."""
     arr = np.frombuffer(_text(BLOCK), np.uint8)
     lens, offs = PE.find_matches_device_lcp(torch.from_numpy(arr.copy()), 4)
     (seqs,) = PE._host_seqs(*PE._walk_compact(lens[None], offs[None],
                                               True, 5))
-    want = block_encode.encode_chunk(arr, level, sequences=seqs)
+    want = block_encode.encode_chunk_plain(arr, level, sequences=seqs)
     with profiling.collect_phases() as col:
         assert block_encode.encode_chunk(arr, level, sequences=seqs) == want
-    # GHI (level 1) has no literal auction; GLO emits its streams twice
+    assert col.counts == dict.fromkeys(block_encode.EMIT_STAGES, 1)
+    assert col.counters == {"emit.native_bytes": BLOCK}
+    if level == 1:
+        assert col.seconds["emit.literals"] == 0
+    if level == 7:
+        assert col.seconds["emit.hufflit"] == 0
+    with profiling.collect_phases() as col:
+        assert block_encode.encode_chunk_plain(arr, level,
+                                               sequences=seqs) == want
+    # GHI (level 1) has no literal auction, levels 6-7 no all-literal
+    # candidate; GLO emits its streams twice
     assert col.counts == ({"emit.streams": 2, "emit.hufflit": 1}
                           if level == 1 else
+                          {"emit.streams": 2, "emit.literals": 1}
+                          if level == 7 else
                           {"emit.streams": 2, "emit.literals": 1,
                            "emit.hufflit": 1})
     assert not col.counters
+
+
+@pytest.mark.parametrize("route", ["lcp", "xla_by_env", "xla_by_size",
+                                   "tail", "encode_chunk_device"])
+@pytest.mark.parametrize("level", [1, 3, 6])
+def test_native_bytes_count_every_block_without_a_dictionary(route, level,
+                                                             monkeypatch):
+    """``emit.native_bytes`` is the archive's plaintext on every route
+    without a dictionary, and ``emit`` holds its four children."""
+    if route == "xla_by_env":
+        monkeypatch.setenv("ZXC_DEVICE_MATCHER", "xla")
+    block = 128 << 10 if route == "xla_by_size" else BLOCK
+    n = {"lcp": 3 * BLOCK, "xla_by_env": 2 * BLOCK, "xla_by_size": 3000,
+         "tail": 2 * BLOCK + 777, "encode_chunk_device": 3 * BLOCK // 2}
+    data = _text(n[route], seed=level)
+    with profiling.collect_phases() as col:
+        if route == "encode_chunk_device":
+            PE.encode_chunk_device(data, level, "cpu", checksum=True)
+        else:
+            arc = PE.compress_device(data, level, block, device="cpu",
+                                     checksum=True)
+            assert Z.decompress(arc) == data
+    assert col.counters["emit.native_bytes"] == len(data)
+    s = col.seconds
+    assert s["emit"] >= sum(s[k] for k in block_encode.EMIT_STAGES)
+    assert all(col.counts[k] == col.counts["emit"]
+               for k in block_encode.EMIT_STAGES)
 
 
 def test_collectors_of_two_threads_do_not_mix():
@@ -193,7 +237,9 @@ def test_trace_holds_the_spans_nested_under_the_caller(tmp_path):
     zxc = [e for e in events if e["name"].startswith("zxc.")]
     names = {e["name"].split(" ")[0] for e in zxc}
     assert {"zxc.compress_device", "zxc.group", "zxc.match",
-            "zxc.parse.readback", "zxc.emit.hufflit"} <= names
+            "zxc.parse.readback", "zxc.emit"} <= names
+    # the emission's stages are the native call's clocks, not ranges
+    assert not any(n.startswith("zxc.emit.") for n in names)
     lo, hi = caller["ts"], caller["ts"] + caller["dur"]
     assert all(lo <= e["ts"] and e["ts"] + e["dur"] <= hi for e in zxc)
     (call,) = [e for e in zxc if e["name"].startswith("zxc.compress_")]

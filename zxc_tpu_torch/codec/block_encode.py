@@ -14,13 +14,16 @@ matcher of ``ops.encode``) the matcher is skipped. A dictionary
 (``DictState``) prefixes the match window and its shared literal table
 competes in every GLO literal auction. Literal sections are priced with
 the reference's space-speed rule ``J = size + (n_decoded * premium) >> 8``
-and the cheapest wins, so the bytes equal the JAX package's. Under a
-``profiling`` collector the emitters record the spans ``emit.streams``
-(sequences to streams, tokens, offsets, extras), ``emit.literals`` (the
-literal section's auction) and ``emit.hufflit`` (the all-literal
-Huffman candidate); level 7's token-section candidate has none. The JAX
-package's numpy matcher and parsers are not copied: without the native
-library these functions raise.
+and the cheapest wins, so the bytes equal the JAX package's. Given
+sequences without a dictionary, ``encode_chunk`` emits the whole block in
+one native call (``runtime.emit_block``) and records that call's stage
+clocks; elsewhere, under a ``profiling`` collector, the Python emitters
+record the spans ``emit.streams`` (sequences to streams, tokens,
+offsets, extras), ``emit.literals`` (the literal section's auction) and
+``emit.hufflit`` (the all-literal Huffman candidate); level 7's
+token-section candidate has none. The JAX package's numpy matcher and
+parsers are not copied: without the native library these functions
+raise.
 """
 from __future__ import annotations
 
@@ -472,15 +475,47 @@ def encode_block_hufflit(data: np.ndarray, budget: int) -> bytes | None:
     return headers.write_gnr_header(gh, descs) + pay
 
 
+# The native block emitter's stages, in the order of its stage clocks
+EMIT_STAGES = ("emit.cap", "emit.streams", "emit.literals", "emit.hufflit")
+
+
 def encode_chunk(data: np.ndarray, level: int,
                  dict_state: DictState | None = None,
-                 checksum: bool = False, sequences=None) -> bytes:
+                 checksum: bool = False, sequences=None,
+                 cap_len: int = 0) -> bytes:
     """Block header + payload (+ checksum), RAW when the block would
     expand (reference: zxc_compress_chunk_wrapper, zxc_compress.c:2122).
     Level 1 emits GHI, or without a dictionary the all-literal Huffman
     block where smaller; levels 2-5 GLO against the all-literal Huffman
     candidate; levels 6-7 GLO. ``sequences``: precomputed (m_pos, m_len,
-    m_off) of an external matcher (``ops.encode``)."""
+    m_off) of an external matcher (``ops.encode``).
+
+    Given sequences and no dictionary, the block is emitted in one native
+    call (``runtime.emit_block``), which first extends the sequences of
+    length ``cap_len`` and over (0: none; the LCP matcher's capped
+    lengths). It adds its stage clocks to the installed collector as
+    ``EMIT_STAGES``, one call each, and the block's bytes to the counter
+    ``emit.native_bytes``. Otherwise the Python emitters run
+    (``encode_chunk_plain``)."""
+    if sequences is not None and dict_state is None:
+        out, stages = runtime.emit_block(data, level, checksum, *sequences,
+                                         cap_len=cap_len)
+        for name, sec in zip(EMIT_STAGES, stages):
+            profiling.add(name, sec)
+        profiling.count("emit.native_bytes", len(data))
+        return out
+    if cap_len:
+        raise ValueError("cap_len applies to given sequences without a "
+                         "dictionary")
+    return encode_chunk_plain(data, level, dict_state, checksum, sequences)
+
+
+def encode_chunk_plain(data: np.ndarray, level: int,
+                       dict_state: DictState | None = None,
+                       checksum: bool = False, sequences=None) -> bytes:
+    """``encode_chunk`` by the Python emitters alone: the path with a
+    dictionary or from plaintext, and the native block emitter's
+    oracle."""
     no_dict = dict_state is None or not len(dict_state.content)
     if level <= 1:
         payload = encode_block_ghi(data, level, dict_state, sequences)

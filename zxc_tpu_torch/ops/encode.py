@@ -343,7 +343,8 @@ def _extend_capped_host(arr: np.ndarray, pos, lns, off):
     """Host fixup for the LCP matcher's 256-byte cap: sequences at the cap
     are extended by chunked byte compare (LZ semantics, the copy reads its
     own output), and following sequences the extension swallows are
-    dropped (greedy re-tile)."""
+    dropped (greedy re-tile). The plain form of the native block
+    emitter's extension (``block_encode.encode_chunk``'s ``cap_len``)."""
     if not (lns >= EK.CAP).any():
         return pos, lns, off
     n = len(arr)
@@ -373,10 +374,10 @@ def _extend_capped_host(arr: np.ndarray, pos, lns, off):
 
 
 # The keys ``compress_device`` adds into its ``_phases`` dict: spans, then
-# the counter (its docstring says what each holds).
+# the counters (its docstring says what each holds).
 PHASES = ("frame", "match", "parse", "parse.issue", "parse.readback",
           "emit", "emit.cap", "emit.streams", "emit.literals",
-          "emit.hufflit", "d2h_bytes")
+          "emit.hufflit", "d2h_bytes", "emit.native_bytes")
 _calls = itertools.count()
 
 
@@ -417,11 +418,9 @@ def _group_seqs(blocks: np.ndarray, dev: torch.device, params,
 
 def _encode_block(arr, level: int, checksum: bool, seqs, capped: bool):
     with profiling.span("emit"):
-        if capped and len(seqs[0]):
-            with profiling.span("emit.cap"):
-                seqs = _extend_capped_host(arr, *seqs)
         return block_encode.encode_chunk(arr, level, checksum=checksum,
-                                         sequences=seqs)
+                                         sequences=seqs,
+                                         cap_len=EK.CAP if capped else 0)
 
 
 def encode_chunk_device(data: bytes | np.ndarray, level: int, device=None,
@@ -465,10 +464,15 @@ def compress_device(data: bytes, level: int = C.LEVEL_DEFAULT,
     compaction gathers) and ``parse.readback`` (the stack, the host's
     wait until the group's queued work ends and its sequences are
     copied, then their cut into blocks); ``emit``, a block's host
-    emission, whose children are ``emit.cap`` (sequences at the LCP cap
-    extended), ``emit.streams``, ``emit.literals`` and ``emit.hufflit``
-    (``codec.block_encode``). The counter ``d2h_bytes`` holds the bytes
-    of every tensor the readback copies, on any device. The call's range
+    emission, one native call (``codec.block_encode.encode_chunk``),
+    whose children are that call's stage clocks: ``emit.cap`` (the
+    sequences checked and, at the LCP cap, extended), ``emit.streams``
+    (literals gathered, tokens, offsets, extras), ``emit.literals`` (the
+    literal section's auction) and ``emit.hufflit`` (the all-literal
+    candidate), one call each a block and no profiler range. The counter
+    ``d2h_bytes`` holds the bytes of every tensor the readback copies, on
+    any device; ``emit.native_bytes`` the plaintext bytes of the blocks
+    the native emitter wrote (every block of the call). The call's range
     in a profiler trace, ``compress_device``, carries the plaintext bytes
     and a call number of the process, and each group's range, ``group``,
     its index and block count."""

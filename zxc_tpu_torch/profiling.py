@@ -28,6 +28,9 @@
   own argument string. With no collector installed, ``span`` is one
   context-variable lookup and a shared no-op context: nothing is
   recorded and no range is opened.
+* :func:`add` — ``add("emit.streams", s)`` adds seconds measured
+  elsewhere (a native call's stage clocks) and one call to the installed
+  collector, as a span of that name would; it opens no range.
 * :func:`count` — ``count("d2h_bytes", n)`` adds to the installed
   collector's counter (nothing without one).
 
@@ -144,6 +147,16 @@ def span(name: str, args: dict | None = None):
     if args:
         label += " " + " ".join(f"{k}={v}" for k, v in args.items())
     return _Span(col, name, label)
+
+
+def add(name: str, seconds: float) -> None:
+    """Add ``seconds`` and one call under ``name`` to the installed
+    collector (nothing without one): a span timed elsewhere, such as a
+    stage of a native call. It opens no profiler range."""
+    col = _active.get()
+    if col is not None:
+        col.seconds[name] = col.seconds.get(name, 0.0) + float(seconds)
+        col.counts[name] = col.counts.get(name, 0) + 1
 
 
 def count(name: str, n) -> None:

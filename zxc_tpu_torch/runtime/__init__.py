@@ -1,7 +1,8 @@
 """Native host runtime of the port: ctypes bindings to ``zxc_host.cpp``.
 
 ``zxc_host.cpp`` is a verbatim copy of ``zxc_tpu/runtime/zxc_host.cpp``
-(standard headers and ``immintrin.h`` only). This module binds the symbols
+(standard headers and ``immintrin.h`` only) followed by the port's own
+entries, after a banner at its end. This module binds the symbols
 the device decode paths call: the frame walk and batched payload checksum,
 the fused per-block prep of the copy engine's control
 (``zxch_v19_prep_block`` / ``zxch_v26_prep_block``) and its hint-writing
@@ -12,7 +13,8 @@ the lane-op and window-op splitters, the host block decoder
 (``Seekable``), the host frame decoder (the hint body is itself a
 frame, also in place), rapidhash64, the native frame encoder, the
 section emitters of the device encoder's host half (PivCo encode, RLE
-literals and package-merge code lengths), the host block encoder's
+literals and package-merge code lengths) and its block emitter from
+given sequences (``zxch_emit_block``), the host block encoder's
 matcher, parsers and fused GHI/GLO emitters, and the dictionary trainer.
 
 Unlike ``zxc_tpu.runtime`` there is no pure-Python fallback: the port's
@@ -137,6 +139,10 @@ def _bind(L: ctypes.CDLL) -> None:
     L.zxch_encode_glo.restype = i64
     L.zxch_encode_glo.argtypes = [vp, u64, u64, ci, ci, ci, ci, ci, ci, ci,
                                   vp, vp, u64]
+    # the device encoder's block emitter (the port's own entry)
+    L.zxch_emit_block.restype = i64
+    L.zxch_emit_block.argtypes = [vp, u64, ci, ci, vp, vp, vp, u64, i64, vp,
+                                  u64, vp]
 
 
 def lib() -> ctypes.CDLL:
@@ -718,6 +724,36 @@ def encode_glo(data: np.ndarray, start: int, max_probes: int, lazy: bool,
                           step_shift, cover_base, min_emit,
                           None if cl8 is None else _ptr(cl8), _ptr(out), cap)
     return _emitted(n, out, "GLO encode")
+
+
+def emit_block(data: np.ndarray, level: int, checksum: bool, pos, lens,
+               offs, cap_len: int = 0) -> tuple[bytes, np.ndarray]:
+    """One dictionary-free block from given sequences in one native call
+    (``zxch_emit_block``): block header, payload and, with ``checksum``,
+    the payload's checksum, the bytes of
+    ``codec.block_encode.encode_chunk_plain`` on the same sequences.
+    Sequences of length ``cap_len`` and over (0: none) are extended first
+    (``ops.encode._extend_capped_host``). Returns the block and the
+    seconds of its four stages (cap extension, streams, literal auction,
+    all-literal candidate). Raises ZxcError with the native code on
+    sequences out of order, out of the block or with offsets out of
+    range."""
+    L = lib()
+    d8 = np.ascontiguousarray(data, np.uint8)
+    p, ln, o = (np.ascontiguousarray(a, np.int64) for a in (pos, lens, offs))
+    if not len(p) == len(ln) == len(o):
+        raise ValueError("pos, lens and offs differ in length")
+    cap = len(d8) + 64
+    out = np.empty(cap, np.uint8)
+    stages = np.zeros(4, np.float64)
+    # raw addresses rather than ``_ptr``: the call runs once a block
+    n = L.zxch_emit_block(d8.ctypes.data, len(d8), level,
+                          1 if checksum else 0, p.ctypes.data,
+                          ln.ctypes.data, o.ctypes.data, len(p), cap_len,
+                          out.ctypes.data, cap, stages.ctypes.data)
+    if n < 0:
+        raise ZxcError(int(n), "native block emit")
+    return out[:n].tobytes(), stages
 
 
 def decompress_frame_into(buffer: bytearray, comp_size: int,

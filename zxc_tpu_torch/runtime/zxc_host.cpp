@@ -7091,3 +7091,402 @@ int64_t zxch_dict_train(const uint8_t *flat, const uint64_t *sizes,
 }
 
 }  // extern "C"
+
+// ===========================================================================
+// The port's own entries. Everything above this banner is the JAX
+// package's runtime/zxc_host.cpp verbatim; what follows exists in this
+// copy alone.
+// ===========================================================================
+
+#include <chrono>
+
+// ---------------------------------------------------------------------------
+// Block emission from given sequences (the device encoder's host half):
+// block header, payload and checksum of one dictionary-free block in one
+// call, byte-identical with block_encode.encode_chunk_plain on the same
+// sequences. Levels 2-7 run their own GLO emitter rather than glo_emit,
+// for two reasons: its stages are timed apart (the sequence streams, the
+// literal auction), and its entropy candidates follow the Python auction
+// where glo_emit differs from it (a section of one symbol value is priced
+// as a one-bit Huffman code). The all-literal candidate is
+// zxch_encode_hufflit without its sampled pre-gate, which can drop a
+// candidate that wins.
+// ---------------------------------------------------------------------------
+namespace {
+
+struct EmitScratch {
+  std::vector<int32_t> mp, ml, mo;
+  std::vector<uint8_t> lit, rle, huf, tok, tokh, off, ext, pay, alt;
+};
+thread_local EmitScratch g_emit;
+
+template <class T>
+T *grow(std::vector<T> &v, uint64_t n) {
+  if (v.size() < n) v.resize(n);
+  return v.data();
+}
+
+struct StageClock {
+  std::chrono::steady_clock::time_point t = std::chrono::steady_clock::now();
+  // seconds since the last call (or the clock's start)
+  double lap() {
+    auto now = std::chrono::steady_clock::now();
+    double s = std::chrono::duration<double>(now - t).count();
+    t = now;
+    return s;
+  }
+};
+
+inline uint8_t *put_varint(uint8_t *w, int64_t v) {
+  if (v < 0x80) {
+    *w++ = (uint8_t)v;
+  } else if (v < 0x4000) {
+    *w++ = (uint8_t)(0x80 | (v & 0x3F));
+    *w++ = (uint8_t)((v >> 6) & 0xFF);
+  } else {
+    *w++ = (uint8_t)(0xC0 | (v & 0x1F));
+    *w++ = (uint8_t)((v >> 5) & 0xFF);
+    *w++ = (uint8_t)((v >> 13) & 0xFF);
+  }
+  return w;
+}
+
+inline int varint_size(int64_t v) {
+  return v < 0x80 ? 1 : (v < 0x4000 ? 2 : 3);
+}
+
+inline void pack_lengths(const uint8_t *cl, uint8_t *w) {
+  for (int b = 0; b < 128; b++)
+    w[b] = (uint8_t)((cl[2 * b] & 0x0F) | (cl[2 * b + 1] << 4));
+}
+
+// Size of the Huffman section of sym[0..n) under the code lengths `cl`,
+// its inline lengths table included, or -1 where the code is refused
+int64_t huffman_size(const uint8_t *sym, uint64_t n, const uint64_t *freq,
+                     const uint8_t *cl) {
+  int64_t sz = zxch_pivco_size_f(sym, n, cl, freq);
+  return sz < 0 ? -1 : 128 + sz;
+}
+
+// Writes that section (`size` bytes, as huffman_size gave it) to `out`;
+// false where the encoder disagrees with the size
+bool huffman_write(const uint8_t *sym, uint64_t n, const uint64_t *freq,
+                   const uint8_t *cl, int64_t size, uint8_t *out,
+                   uint64_t cap) {
+  pack_lengths(cl, out);
+  return zxch_pivco_encode_f(sym, n, cl, freq, out + 128, cap - 128)
+         == size - 128;
+}
+
+// The GLO payload of a parse (block_encode._glo_payload without a
+// dictionary): the premiums and code caps of `level`, the token section's
+// Huffman candidate at level 7. Adds the stages' seconds to st[1]
+// (streams) and st[2] (literal auction).
+int64_t emit_glo(const uint8_t *data, uint64_t P, const int32_t *mp,
+                 const int32_t *ml, const int32_t *mo, int64_t nseq,
+                 int level, uint8_t *out, uint64_t cap, double *st) {
+  EmitScratch &S = g_emit;
+  StageClock clk;
+  const int prem_rle = level >= 6 ? 1 : 8;
+  const int prem_huf = level >= 6 ? 4 : 8;
+  const int max_len = level >= 7 ? 11 : 8;
+
+  // the streams: literals gathered (32-byte chunks while the block has
+  // them; the buffer's slack takes the overshoot), tokens, offsets and
+  // extras in sequence order
+  uint64_t lit_total = P, n_ext = 0;
+  int64_t max_off = 1;
+  for (int64_t i = 0, cursor = 0; i < nseq; i++) {
+    int64_t llv = mp[i] - cursor, mlb = ml[i] - 5;
+    cursor = mp[i] + ml[i];
+    lit_total -= (uint64_t)ml[i];
+    if (llv >= 15) n_ext += varint_size(llv - 15);
+    if (mlb >= 15) n_ext += varint_size(mlb - 15);
+    if (mo[i] > max_off) max_off = mo[i];
+  }
+  const bool use8 = nseq == 0 || max_off <= 256;
+  const uint64_t off_bytes = (use8 ? 1 : 2) * (uint64_t)nseq;
+  uint8_t *lit = grow(S.lit, lit_total + 32);
+  uint8_t *tok = grow(S.tok, (uint64_t)nseq + 1);
+  uint8_t *offw = grow(S.off, off_bytes + 1);
+  uint8_t *ext = grow(S.ext, n_ext + 1);
+  {
+    const uint8_t *end = data + P;
+    uint8_t *lw = lit, *ew = ext;
+    int64_t cursor = 0;
+    for (int64_t i = 0; i < nseq; i++) {
+      int64_t llv = mp[i] - cursor, mlb = ml[i] - 5;
+      const uint8_t *s = data + cursor;
+      if (s + llv + 32 <= end) {
+        for (int64_t k = 0; k < llv; k += 32) memcpy(lw + k, s + k, 32);
+      } else {
+        memcpy(lw, s, (size_t)llv);
+      }
+      lw += llv;
+      cursor = mp[i] + ml[i];
+      tok[i] = (uint8_t)(((llv < 15 ? llv : 15) << 4) | (mlb < 15 ? mlb : 15));
+      uint32_t ob = (uint32_t)(mo[i] - 1);
+      if (use8) {
+        offw[i] = (uint8_t)ob;
+      } else {
+        offw[2 * i] = (uint8_t)(ob & 0xFF);
+        offw[2 * i + 1] = (uint8_t)(ob >> 8);
+      }
+      if (llv >= 15) ew = put_varint(ew, llv - 15);
+      if (mlb >= 15) ew = put_varint(ew, mlb - 15);
+    }
+    memcpy(lw, data + cursor, (size_t)((int64_t)P - cursor));
+  }
+  st[1] += clk.lap();
+
+  // the literal auction, priced J = size + (n * premium) >> 8: RAW, RLE,
+  // then from 139 literals Huffman with its inline table
+  int enc_lit = 0;
+  const uint8_t *lit_sec = lit;
+  uint64_t lit_len = lit_total;
+  int64_t best_j = (int64_t)lit_total;
+  if (lit_total > 0) {
+    uint8_t *rle = grow(S.rle, 2 * lit_total + 8);
+    int64_t rn = ghi_rle_encode(lit, lit_total, rle, 2 * lit_total + 8);
+    int64_t j = rn + (int64_t)((lit_total * (uint64_t)prem_rle) >> 8);
+    if (rn >= 0 && j < best_j) {
+      enc_lit = 1, lit_sec = rle, lit_len = (uint64_t)rn, best_j = j;
+    }
+    if (lit_total >= 139) {
+      uint64_t freq[256];
+      uint8_t cl[256];
+      zxch_hist4(lit, lit_total, freq);
+      const int64_t tax = (int64_t)((lit_total * (uint64_t)prem_huf) >> 8);
+      if (zxch_build_code_lengths(freq, max_len, cl) >= 1) {
+        uint64_t bits = 0;
+        for (int s = 0; s < 256; s++) bits += freq[s] * cl[s];
+        // sound skip: per-node byte rounding only adds to bits / 8
+        if (128 + (int64_t)(bits >> 3) + tax < best_j) {
+          uint64_t hcap = 2 * lit_total + 4096 + 128;
+          uint8_t *huf = grow(S.huf, hcap);
+          int64_t hn = huffman_size(lit, lit_total, freq, cl);
+          if (hn >= 0 && hn + tax < best_j &&
+              huffman_write(lit, lit_total, freq, cl, hn, huf, hcap)) {
+            enc_lit = 2, lit_sec = huf, lit_len = (uint64_t)hn;
+            best_j = hn + tax;
+          }
+        }
+      }
+    }
+  }
+  st[2] += clk.lap();
+
+  // the token section's Huffman candidate (level 7)
+  int enc_tok = 0;
+  const uint8_t *tok_sec = tok;
+  uint64_t tok_len = (uint64_t)nseq;
+  if (level >= 7 && nseq >= 139) {
+    uint64_t tfreq[256];
+    uint8_t tcl[256];
+    zxch_hist4(tok, (uint64_t)nseq, tfreq);
+    int64_t tn = zxch_build_code_lengths(tfreq, max_len, tcl) >= 1
+        ? huffman_size(tok, (uint64_t)nseq, tfreq, tcl) : -1;
+    if (tn >= 0 && tn + (int64_t)(((uint64_t)nseq * prem_huf) >> 8) < nseq) {
+      uint64_t hcap = 2 * (uint64_t)nseq + 4096 + 128;
+      uint8_t *tokh = grow(S.tokh, hcap);
+      if (huffman_write(tok, (uint64_t)nseq, tfreq, tcl, tn, tokh, hcap)) {
+        enc_tok = 2, tok_sec = tokh, tok_len = (uint64_t)tn;
+      }
+    }
+  }
+  clk.lap();
+
+  uint64_t need = 16 + 32 + lit_len + tok_len + off_bytes + n_ext;
+  if (need > cap) return -10;
+  uint8_t *w = out;
+  uint32_t u = (uint32_t)nseq;
+  memcpy(w, &u, 4);
+  u = (uint32_t)lit_total;
+  memcpy(w + 4, &u, 4);
+  w[8] = (uint8_t)enc_lit;
+  w[9] = (uint8_t)enc_tok;
+  w[10] = 0;
+  w[11] = use8 ? 1 : 0;
+  memset(w + 12, 0, 4);
+  uint64_t d = lit_len | ((uint64_t)lit_total << 32);
+  memcpy(w + 16, &d, 8);
+  d = tok_len | ((uint64_t)nseq << 32);
+  memcpy(w + 24, &d, 8);
+  d = off_bytes | (off_bytes << 32);
+  memcpy(w + 32, &d, 8);
+  d = n_ext | (n_ext << 32);
+  memcpy(w + 40, &d, 8);
+  w += 48;
+  memcpy(w, lit_sec, lit_len);
+  w += lit_len;
+  memcpy(w, tok_sec, tok_len);
+  w += tok_len;
+  memcpy(w, offw, off_bytes);
+  w += off_bytes;
+  memcpy(w, ext, n_ext);
+  st[1] += clk.lap();
+  return (int64_t)need;
+}
+
+// block_encode.encode_block_hufflit: the sequence-free GLO payload with
+// Huffman literals, or -1 unless strictly smaller than `budget`
+int64_t emit_hufflit(const uint8_t *data, uint64_t P, uint8_t *out,
+                     uint64_t cap, uint64_t budget) {
+  const uint64_t FIXED = 16 + 32 + 128;
+  if (FIXED + (P + 7) / 8 >= budget) return -1;
+  uint64_t freq[256];
+  uint8_t cl[256];
+  zxch_hist4(data, P, freq);
+  if (zxch_build_code_lengths(freq, 8, cl) < 2) return -1;
+  uint64_t bits = 0;
+  for (int s = 0; s < 256; s++) bits += freq[s] * cl[s];
+  if (FIXED + (bits + 7) / 8 >= budget) return -1;
+  int64_t pay = zxch_pivco_size_f(data, P, cl, freq);
+  if (pay < 0 || FIXED + (uint64_t)pay >= budget) return -1;
+  uint64_t need = FIXED + (uint64_t)pay;
+  if (need > cap) return -10;
+  pack_lengths(cl, out + 48);
+  if (zxch_pivco_encode_f(data, P, cl, freq, out + FIXED, cap - FIXED) != pay)
+    return -10;
+  uint32_t u = 0;
+  memcpy(out, &u, 4);
+  u = (uint32_t)P;
+  memcpy(out + 4, &u, 4);
+  out[8] = 2;   // enc_lit HUFFMAN
+  out[9] = 0;
+  out[10] = 0;
+  out[11] = 1;  // 8-bit offsets (none)
+  memset(out + 12, 0, 4);
+  uint64_t d = (128 + (uint64_t)pay) | ((uint64_t)P << 32);
+  memcpy(out + 16, &d, 8);
+  memset(out + 24, 0, 24);
+  return (int64_t)need;
+}
+
+// first q >= from where data[q] != data[q - off], or n (LZ semantics: the
+// copy reads its own output)
+uint64_t extend_match(const uint8_t *data, uint64_t n, uint64_t from,
+                      uint64_t off) {
+  uint64_t q = from;
+  while (q + 8 <= n) {
+    uint64_t a, b;
+    memcpy(&a, data + q, 8);
+    memcpy(&b, data + q - off, 8);
+    if (a != b) return q + (__builtin_ctzll(a ^ b) >> 3);
+    q += 8;
+  }
+  while (q < n && data[q] == data[q - off]) q++;
+  return q;
+}
+
+}  // namespace
+
+extern "C" {
+
+// One dictionary-free block from given sequences (pos, len, off: block
+// coordinates, ascending, len >= 5, 1 <= off <= pos, off <= 64 KiB):
+// block header, payload and, with `checksum`, the payload's rapidhash32,
+// written to out (cap >= n + 12). Sequences of length >= cap_len (0: none)
+// are the LCP matcher's capped lengths: each is extended forward against
+// the plaintext and the sequences it swallows are dropped
+// (ops.encode._extend_capped_host). Level 1 emits GHI against the
+// all-literal Huffman candidate, levels 2-5 GLO against it, levels 6-7
+// GLO alone (levels outside 1-7 clamp); RAW where the block would expand.
+// stage_s[0..4) receives the seconds of the cap extension (with the
+// sequences' checks), the streams, the literal auction and the
+// all-literal candidate. Returns the bytes written, or a negative error
+// code: -2 (out too small), -8 (a sequence out of order or out of the
+// block), -9 (an offset out of range), -14 (a block over 2 MiB).
+int64_t zxch_emit_block(const uint8_t *data, uint64_t n, int level,
+                        int checksum, const int64_t *pos,
+                        const int64_t *len, const int64_t *off, uint64_t nseq,
+                        int64_t cap_len, uint8_t *out, uint64_t cap,
+                        double *stage_s) {
+  const uint64_t BH = 8;
+  EmitScratch &S = g_emit;
+  StageClock clk;
+  for (int k = 0; k < 4; k++) stage_s[k] = 0;
+  if (n > (1u << 21)) return -14;
+  if (cap < n + BH + 4) return -2;
+  level = level < 1 ? 1 : (level > 7 ? 7 : level);
+
+  int32_t *mp = grow(S.mp, nseq + 1);
+  int32_t *ml = grow(S.ml, nseq + 1);
+  int32_t *mo = grow(S.mo, nseq + 1);
+  int64_t m = 0, prev_end = 0, cursor = 0;
+  for (uint64_t i = 0; i < nseq; i++) {
+    int64_t p = pos[i], l = len[i], o = off[i];
+    if (p < prev_end || l < 5 || l > (int64_t)n - p) return -8;
+    if (o < 1 || o > p || o > 65536) return -9;
+    prev_end = p + l;
+    if (p < cursor) continue;  // swallowed by an extended match
+    if (cap_len > 0 && l >= cap_len)
+      l = (int64_t)extend_match(data, n, (uint64_t)(p + l), (uint64_t)o) - p;
+    mp[m] = (int32_t)p;
+    ml[m] = (int32_t)l;
+    mo[m] = (int32_t)o;
+    m++;
+    cursor = p + l;
+  }
+  stage_s[0] = clk.lap();
+
+  // candidates are emitted after the block header's room; a payload that
+  // does not fit before the checksum's room is RAW anyway
+  uint8_t *pay = out + BH;
+  const uint64_t pcap = cap - BH - 4;
+  const uint64_t raw_budget = n > BH ? n - BH : 0;
+  int64_t psz = -1;
+  int btype = 1;
+  if (level <= 1) {
+    uint64_t lit_total, n_ext;
+    uint64_t need = zxch_ghi_size(mp, ml, m, n, &lit_total, &n_ext);
+    uint64_t budget = need < raw_budget ? need : raw_budget;
+    stage_s[1] += clk.lap();
+    uint8_t *alt = grow(S.alt, n + 1024);
+    int64_t hl = emit_hufflit(data, n, alt, n + 1024, budget);
+    stage_s[3] = clk.lap();
+    if (hl >= 0) {
+      memcpy(pay, alt, (size_t)hl);
+      psz = hl;
+    } else if (need <= pcap) {
+      psz = zxch_emit_ghi(data, 0, n, mp, ml, mo, m, lit_total, n_ext, pay);
+      btype = 2;
+      stage_s[1] += clk.lap();
+    }
+  } else {
+    uint64_t gcap = 2 * n + 6 * (uint64_t)m + 4096;
+    uint8_t *glo = grow(S.pay, gcap);
+    int64_t g = emit_glo(data, n, mp, ml, mo, m, level, glo, gcap, stage_s);
+    const uint8_t *win = g >= 0 && (uint64_t)g <= pcap ? glo : nullptr;
+    psz = win ? g : -1;
+    if (level <= 5) {
+      uint64_t budget = g >= 0 && (uint64_t)g < raw_budget ? (uint64_t)g
+                                                           : raw_budget;
+      uint8_t *alt = grow(S.alt, n + 1024);
+      clk.lap();
+      int64_t hl = emit_hufflit(data, n, alt, n + 1024, budget);
+      stage_s[3] = clk.lap();
+      if (hl >= 0) win = alt, psz = hl;
+    }
+    if (win) memcpy(pay, win, (size_t)psz);
+  }
+  if (psz < 0 || BH + (uint64_t)psz >= n) {
+    memcpy(pay, data, n);
+    psz = (int64_t)n;
+    btype = 0;
+  }
+  memset(out, 0, BH);
+  out[0] = (uint8_t)btype;
+  uint32_t u = (uint32_t)psz;
+  memcpy(out + 3, &u, 4);
+  out[7] = zxch_hash8(out);
+  uint64_t w = BH + (uint64_t)psz;
+  if (checksum) {
+    u = zxch_rapidhash32(pay, (size_t)psz, 0);
+    memcpy(out + w, &u, 4);
+    w += 4;
+  }
+  return (int64_t)w;
+}
+
+}  // extern "C"
