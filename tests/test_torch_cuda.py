@@ -31,7 +31,9 @@ hand-written kernel),
 kernel-free, with its corruption refusals), ``Dctx(device=True)``,
 ``entry.entry()``, the sharded decode (``parallel.decode_plan_sharded``
 and ``decode_plan_dp_sp`` over an NCCL group of one rank) and
-``entry.dryrun_multichip(1)``, the device encode against the CPU path,
+``entry.dryrun_multichip(1)``, the device encode against the CPU path
+(level 7 also against the benchmark's plain reference,
+``bench_port/reference/opt_parse.py``),
 and the command line's ``-z --device --hints`` and ``-d --device
 --hints`` with their launches. They need an NVIDIA card with
 nvcc, are marked ``cuda`` and skip without one. On the card:
@@ -655,15 +657,17 @@ def test_parse_walk_refuses_a_bad_geometry_on_card(card):
     assert nseq.tolist() == [0, 0]
 
 
-@pytest.mark.parametrize("level", [1, 3, 5])
+@pytest.mark.parametrize("level", [1, 3, 5, 7])
 def test_compress_device_on_card_equals_cpu(card, level):
     from zxc_tpu_torch.ops import encode_kernels as EK
     data = (_card_corpus(level) * 3)[:1 << 20]
     before = (EK.lcp.launches, EK.parse_walk.launches)
     arc = Z.ops.compress_device(data, level=level, block_size=65536)
     groups = -(-(len(data) // 65536) // 16) + (len(data) % 65536 > 0)
+    # level 7 parses on the host: no parse walk
     assert (EK.lcp.launches - before[0],
-            EK.parse_walk.launches - before[1]) == (groups, groups)
+            EK.parse_walk.launches - before[1]) == (
+                groups, groups if level < 7 else 0)
     assert arc == Z.ops.compress_device(data, level=level, block_size=65536,
                                         device="cpu")
     assert Z.codec.frame.decompress(arc) == data
@@ -710,6 +714,51 @@ def test_compress_device_phases_on_card_never_synchronize(card, monkeypatch,
             "zxc.group index=1 blocks=1"} <= names
     assert any("lcp_kernel" in n for n in names)
     assert any("parse_walk_kernel" in n for n in names)
+
+
+def _l7_corpus() -> bytes:
+    """1 MiB and a tail of the benchmark's stand-in mix."""
+    from bench_port.harness import corpus
+    return corpus.gen_chunk((1 << 20) + 5000, (2**31 + 77, 0, 0))
+
+
+def test_compress_device_l7_on_card_equals_reference(card):
+    """Level 7 on the card, block by block, against the plain reference:
+    its plain-torch matcher on the card, its parse on the host."""
+    from bench_port.reference import opt_parse as OP, zxc_numpy as R
+    data = _l7_corpus()
+    arc = Z.ops.compress_device(data, level=7, block_size=65536,
+                                checksum=True)
+    fr = R.walk_frame(arc)
+    got = [arc[b.start - 8:b.start + b.size + 4] for b in fr.blocks]
+    assert got == OP.encode(data, 65536, True, device=card)
+    assert Z.codec.frame.decompress(arc) == data
+
+
+def test_compress_device_l7_phases_on_card_never_synchronize(card,
+                                                             monkeypatch):
+    """Level 7 on the card: the ``opt.*`` spans and counters recorded, the
+    candidates read back at four bytes a position, and
+    ``torch.cuda.synchronize`` called zero times."""
+    from zxc_tpu_torch.ops import encode as PE
+    data = _l7_corpus()
+    want = Z.ops.compress_device(data, level=7, block_size=65536)
+    calls = []
+    real = torch.cuda.synchronize
+
+    def counted(*a, **k):
+        calls.append(a)
+        return real(*a, **k)
+
+    monkeypatch.setattr(torch.cuda, "synchronize", counted)
+    ph = {}
+    assert Z.ops.compress_device(data, level=7, block_size=65536,
+                                 _phases=ph) == want
+    assert calls == []
+    assert set(ph) == (set(PE.PHASES) - {"emit"}) | set(PE.OPT_PHASES)
+    assert ph["d2h_bytes"] == 4 * len(data)
+    assert ph["emit.native_bytes"] == len(data)
+    assert ph["opt.dp"] > 0 and ph["opt.parses"] >= 17
 
 
 def test_cli_device_hints_on_card(card, tmp_path, monkeypatch):

@@ -685,8 +685,11 @@ def test_compress_device_equals_jax(level, block_size):
                   checksum=True)
 
 
-@pytest.mark.parametrize("level", [6, 7])
+@pytest.mark.parametrize("level", [6])
 def test_compress_device_ultra_levels_equal_jax(level):
+    """Level 6 equals the JAX package; level 7, whose parse is the DP on
+    the host, is held against the plain reference in
+    test_torch_opt_parse.py."""
     _same_archive(_words(level, 4096), level=level, block_size=4096)
 
 

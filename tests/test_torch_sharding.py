@@ -153,6 +153,22 @@ def _jax_run(job, files):
     raise AssertionError(op)
 
 
+def _port_run(job, files):
+    """The port's single-device result for a level-7 job: the archive of
+    ``compress_device``, or every block's candidates from the matcher
+    compared at the LCP cap, (lens, offs) int32."""
+    from zxc_tpu_torch.ops import encode as PE, encode_kernels as EK
+    data = files[job["input"]]
+    if job["op"] == "compress_sharded":
+        return PE.compress_device(data, job["level"], job["block_size"],
+                                  "cpu", job["checksum"])
+    blocks = np.frombuffer(data, np.uint8).reshape(-1, job["block_size"])
+    outs = [PE.find_matches_device(torch.from_numpy(b.copy()), 128,
+                                   EK.CAP) for b in blocks]
+    return (np.stack([o[0].clamp(max=EK.CAP).numpy() for o in outs]),
+            np.stack([o[1].numpy() for o in outs]))
+
+
 def _launch_jobs(tmp, n, jobs, files):
     """Writes the inputs and the spec, runs the jobs on ``n`` gloo ranks
     and returns ({name: [result of each rank]}, [modules of each rank],
@@ -208,6 +224,8 @@ def _files():
         "enc8.bin": _enc_data()[:8 * 8192],
         "enc6.bin": _enc_data()[:6 * 8192],
         "enc4k.bin": _enc_data()[:4 * 4096 + 100],
+        "words4k.bin": _words(13, 8 * 4096 + 333),
+        "words8.bin": _words(13, 8 * 4096 + 333)[:8 * 4096],
     }
 
 
@@ -246,6 +264,14 @@ JOBS4 = [
          block_size=8192, level=1, checksum=True, axes=["dp"], shape=[4]),
     dict(name="compress_l6", op="compress_sharded", input="enc4k.bin",
          block_size=4096, level=6, checksum=False, axes=["dp"], shape=[4]),
+    # level 7 is held against the port's compress_device, not the JAX
+    # package, whose level 7 has no DP on the device path
+    dict(name="compress_l7", op="compress_sharded", input="words4k.bin",
+         block_size=4096, level=7, checksum=True, axes=["dp"], shape=[4],
+         port=True),
+    dict(name="encode_blocks_l7", op="encode_blocks_sharded",
+         input="words8.bin", block_size=4096, level=7, axes=["dp"],
+         shape=[4], port=True),
     dict(name="corrupt_plan", op="decode_plan_sharded", archive="words.zxc",
          tamper=TAMPER, axes=["dp"], shape=[4]),
     dict(name="corrupt_plan_dp_sp", op="decode_plan_dp_sp",
@@ -283,7 +309,8 @@ def _run(tmp, n, jobs):
         if job.get("arrays"):
             job["arrays"] = os.path.join(tmp, job["arrays"])
     got, mods, wall = _launch_jobs(tmp, n, jobs, files)
-    want = {job["name"]: _jax_run(dict(job, n=n), files)
+    want = {job["name"]: (_port_run(job, files) if job.get("port")
+                          else _jax_run(dict(job, n=n), files))
             for job in jobs if job["op"] != "dp_sp_kernel"
             or job["block"] % job["shape"][1] == 0}
     return {"got": got, "want": want, "mods": mods, "wall": wall,
@@ -340,6 +367,18 @@ def test_decode_equals_jax(run4, name):
                                   "compress_l1", "compress_l6"])
 def test_encode_equals_jax(run4, name):
     _check_same_as_jax(run4, name)
+
+
+@pytest.mark.parametrize("name", ["compress_l7", "encode_blocks_l7"])
+def test_level7_equals_compress_device(run4, name):
+    """Level 7's sharded blocks go through the native entry from the
+    candidates of a matcher compared at the LCP cap: the archive is
+    ``compress_device(level=7, device="cpu")``'s."""
+    _check_same_as_jax(run4, name)
+    if name == "compress_l7":
+        arc = run4["got"][name][0]["ok"]
+        assert pframe.decompress(arc, Z.DecodeOpts(checksum=True)) == \
+            _words(13, 8 * 4096 + 333)
 
 
 def test_compress_sharded_decodes_back(run4):

@@ -17,7 +17,11 @@ the reference's space-speed rule ``J = size + (n_decoded * premium) >> 8``
 and the cheapest wins, so the bytes equal the JAX package's. Given
 sequences without a dictionary, ``encode_chunk`` emits the whole block in
 one native call (``runtime.emit_block``) and records that call's stage
-clocks; elsewhere, under a ``profiling`` collector, the Python emitters
+clocks. Given every position's best candidate instead (the device
+matcher at level 7), ``encode_group_opt`` runs the level-7 pipeline
+from the lazy first pass on for a group of blocks in one native call
+(``runtime.opt_group``). Elsewhere, under a ``profiling`` collector, the
+Python emitters
 record the spans ``emit.streams`` (sequences to streams, tokens,
 offsets, extras), ``emit.literals`` (the literal section's auction) and
 ``emit.hufflit`` (the all-literal Huffman candidate); level 7's
@@ -508,6 +512,43 @@ def encode_chunk(data: np.ndarray, level: int,
         raise ValueError("cap_len applies to given sequences without a "
                          "dictionary")
     return encode_chunk_plain(data, level, dict_state, checksum, sequences)
+
+
+# The level-7 entry's stage clocks, in their order, and its counts
+OPT_STAGES = EMIT_STAGES + ("opt.prepass", "opt.dp")
+OPT_COUNTS = ("opt.parses", "opt.extended")
+
+
+def encode_group_opt(data: np.ndarray, block_size: int, checksum: bool,
+                     packed: np.ndarray, cap_len: int, threads: int):
+    """Level 7 from per-position candidates (the device matcher's best
+    candidate of every position, packed ``len << 16 | (off - 1)``, one
+    int32 a byte): the blocks of ``data`` cut at ``block_size``, each with
+    its lengths of ``cap_len`` and over made exact, then this module's
+    level-7 pipeline from the lazy first pass on (``_first_pass_costs``,
+    the DP passes, ``_token_costs``, the ``_glo_payload`` auction) and
+    ``encode_chunk_plain``'s block, in one native call on ``threads``
+    threads (``runtime.opt_group``) that holds no Python lock. Records
+    nothing, so that it may run on any thread: returns (blocks, stats),
+    and ``add_opt_stats(stats)`` adds each block's stage clocks
+    (``OPT_STAGES``), counts (``OPT_COUNTS``) and plaintext bytes
+    (``emit.native_bytes``) to the installed collector."""
+    blocks, stages, counts = runtime.opt_group(data, block_size, checksum,
+                                               packed, cap_len, threads)
+    return blocks, (np.size(data), stages, counts)
+
+
+def add_opt_stats(stats) -> None:
+    """Adds an ``encode_group_opt`` call's stats to the installed
+    collector: each stage of each block as one call of its span, even
+    where it reads 0, and the counters."""
+    n, stages, counts = stats
+    for row in stages:
+        for name, sec in zip(OPT_STAGES, row):
+            profiling.add(name, sec)
+    for name, c in zip(OPT_COUNTS, counts.sum(0).tolist()):
+        profiling.count(name, c)
+    profiling.count("emit.native_bytes", n)
 
 
 def encode_chunk_plain(data: np.ndarray, level: int,

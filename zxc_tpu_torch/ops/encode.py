@@ -6,8 +6,10 @@ Per block: 5-byte hashes of every position, candidate lists from one
 stable sort (the vectorized form of walking a hash chain; reference
 zxc_lz77_find_best_match, zxc_compress.c:193-560), the offset-1 runs
 resolved analytically, match extension, the best candidate per position,
-then the greedy or lazy parse. Two matchers, chosen per block as the JAX
-package chooses them:
+then the greedy or lazy parse on the card; at level 7 the best candidates
+come back to the host instead, whose DP optimal parse runs beside the
+next group's match (``compress_device``). Two matchers, chosen per block
+as the JAX package chooses them:
 
 * the LCP matcher (blocks up to 64 KiB, ``ZXC_DEVICE_MATCHER`` unset or
   ``lcp``): every candidate measured by the LCP kernel (capped at 256;
@@ -28,8 +30,11 @@ archives equal the JAX package's byte for byte.
 """
 from __future__ import annotations
 
+import collections
 import itertools
 import os
+import threading
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -105,13 +110,15 @@ def _hash_order(d: torch.Tensor):
     return w32, lo, b5, h, order, rank
 
 
-def _merge(lens0, best_len, best_off):
+def _merge(lens0, best_len, best_off, cap: int = 0):
     """Hash matches over run matches: a hash match replaces the run match
-    only when longer (ties keep offset 1)."""
+    only when longer, its length taken at most ``cap`` where ``cap`` is
+    set (ties keep offset 1)."""
     nh = best_len.shape[-1]
     lens = lens0.clone()
     offs = torch.ones_like(lens0)
-    use = (best_len >= C.MIN_MATCH) & (best_len > lens[..., :nh])
+    key = best_len.clamp(max=cap) if cap else best_len
+    use = (best_len >= C.MIN_MATCH) & (key > lens[..., :nh])
     lens[..., :nh] = torch.where(use, best_len, lens[..., :nh]).int()
     offs[..., :nh] = torch.where(use, best_off, 1).int()
     return lens, offs
@@ -179,11 +186,16 @@ def _extend_exact(d: torch.Tensor, w32, p, c) -> torch.Tensor:
     return _byte_tail(d, p, c, m, live)
 
 
-def find_matches_device(data: torch.Tensor, n_candidates: int):
+def find_matches_device(data: torch.Tensor, n_candidates: int,
+                        cap: int = 0):
     """The XLA matcher: best (len, off) per position of a uint8 block
     (int32; lens == 0 means no match). Candidates are the k-back entries
     of the position's hash group, verified on 5 bytes and extended
-    exactly (``_extend_exact``); offset-1 runs stay analytic."""
+    exactly (``_extend_exact``); offset-1 runs stay analytic. With
+    ``cap``, candidates are compared by their lengths taken at most
+    ``cap``, as the LCP matcher measures them, and the winner keeps its
+    exact length (level 7, whose host half extends the LCP matcher's
+    lengths at the cap)."""
     n = data.shape[0]
     if n < C.MIN_MATCH + 1:
         return (torch.zeros(n, dtype=torch.int32, device=data.device),
@@ -206,10 +218,13 @@ def find_matches_device(data: torch.Tensor, n_candidates: int):
         idx = ok.nonzero().squeeze(1)
         m = torch.zeros_like(best_len)
         m[idx] = _extend_exact(data, w32, idx, cand[idx])
-        better = ok & (m > best_len)
+        if cap:
+            better = ok & (m.clamp(max=cap) > best_len.clamp(max=cap))
+        else:
+            better = ok & (m > best_len)
         best_len = torch.where(better, m, best_len)
         best_off = torch.where(better, dist, best_off)
-    return _merge(lens0, best_len, best_off)
+    return _merge(lens0, best_len, best_off, cap)
 
 
 def _lcp_pre(blocks: torch.Tensor, K: int):
@@ -374,11 +389,35 @@ def _extend_capped_host(arr: np.ndarray, pos, lns, off):
 
 
 # The keys ``compress_device`` adds into its ``_phases`` dict: spans, then
-# the counters (its docstring says what each holds).
+# the counters (its docstring says what each holds). Level 7 records
+# ``PHASES`` but ``emit``, and ``OPT_PHASES``.
 PHASES = ("frame", "match", "parse", "parse.issue", "parse.readback",
           "emit", "emit.cap", "emit.streams", "emit.literals",
           "emit.hufflit", "d2h_bytes", "emit.native_bytes")
+OPT_PHASES = ("opt.prepass", "opt.dp", "opt.wait", "opt.parses",
+              "opt.extended")
+OPT_LEVEL = 7     # the level whose parse is the DP on the host
+OPT_DEPTH = 2     # level-7 groups in flight while the next is matched
 _calls = itertools.count()
+_pool: ThreadPoolExecutor | None = None
+_pool_lock = threading.Lock()
+
+
+def opt_threads() -> int:
+    """Threads of a level-7 group's native call: one less than the CPUs
+    this process may run on, the calling thread's (at least 1, at most
+    16)."""
+    return max(1, min(len(os.sched_getaffinity(0)) - 1, 16))
+
+
+def _opt_pool() -> ThreadPoolExecutor:
+    """The process's worker thread for level-7 groups, made on first use
+    (one: a group's native call runs its own threads)."""
+    global _pool
+    with _pool_lock:
+        if _pool is None:
+            _pool = ThreadPoolExecutor(1, thread_name_prefix="zxc-opt")
+        return _pool
 
 
 def _host_seqs(n_seq, pos, lns, off):
@@ -396,24 +435,101 @@ def _host_seqs(n_seq, pos, lns, off):
     return seqs
 
 
+def pack_cands(lens, offs) -> torch.Tensor:
+    """Per-position candidates in one int32 each: ``min(len, CAP) << 16 |
+    (off - 1)`` (offsets from 1 to 64 KiB, lengths at most the LCP cap)."""
+    return (lens.clamp(max=EK.CAP) << 16) | (offs - 1)
+
+
+def _host_cands(packed: torch.Tensor) -> np.ndarray:
+    """A group's packed candidates to the host in one copy (span
+    ``parse.readback``: the host's wait for the group's queued work and
+    the copy); ``d2h_bytes`` counts it."""
+    with profiling.span("parse.readback"):
+        host = packed.cpu().numpy()
+    profiling.count("d2h_bytes", packed.nbytes)
+    return host
+
+
+def _group_matches(blocks: np.ndarray, dev: torch.device, params,
+                   use_lcp: bool, cap: int = 0):
+    """The match of a (B, n) group of blocks on ``dev`` (B is 1 off the
+    LCP matcher, whose lengths stop at ``EK.CAP``; ``cap`` is the XLA
+    matcher's): (lens, offs) (B, n) int32 under the span ``match``."""
+    with profiling.span("match"):
+        d = torch.from_numpy(np.array(blocks, np.uint8)).to(dev)
+        if use_lcp:
+            return find_matches_device_lcp_batch(d, params.n_candidates)
+        lens, offs = find_matches_device(d[0], params.n_candidates, cap)
+        return lens[None], offs[None]
+
+
 def _group_seqs(blocks: np.ndarray, dev: torch.device, params,
                 use_lcp: bool) -> list:
     """Match and parse of a (B, n) group of blocks on ``dev`` (B is 1 off
     the LCP matcher), and its sequences on the host (``_host_seqs``)."""
-    with profiling.span("match"):
-        d = torch.from_numpy(np.array(blocks, np.uint8)).to(dev)
-        if use_lcp:
-            lens, offs = find_matches_device_lcp_batch(d, params.n_candidates)
-        else:
-            lens, offs = find_matches_device(d[0], params.n_candidates)
+    lens, offs = _group_matches(blocks, dev, params, use_lcp)
     with profiling.span("parse"):
         with profiling.span("parse.issue"):
             if use_lcp:
                 out = _walk_compact(lens, offs, params.lazy, params.min_emit)
             else:
                 out = tuple(t[None] for t in parse_compact_device(
-                    lens, offs, params.lazy, params.min_emit))
+                    lens[0], offs[0], params.lazy, params.min_emit))
         return _host_seqs(*out)
+
+
+def _group_cands(blocks: np.ndarray, dev: torch.device, params,
+                 use_lcp: bool) -> np.ndarray:
+    """Level 7's match of a (B, n) group of blocks on ``dev`` and every
+    position's best candidate on the host, (B, n) int32 packed
+    (``pack_cands``). The XLA matcher compares at the LCP cap, so that
+    both matchers pick the same candidate. Spans as ``_group_seqs``'s:
+    ``parse.issue`` is the packing, ``parse.readback`` the copy."""
+    lens, offs = _group_matches(blocks, dev, params, use_lcp, EK.CAP)
+    with profiling.span("parse"):
+        with profiling.span("parse.issue"):
+            packed = pack_cands(lens, offs)
+        return _host_cands(packed)
+
+
+class _OptPipe:
+    """Level-7 dispatch groups parsed and emitted on the host while the
+    caller matches the next group on the card: ``put`` hands a group's
+    blocks and candidates to a worker thread, whose one native call runs
+    them on ``opt_threads()`` threads (``block_encode.encode_group_opt``),
+    and then, with more than ``OPT_DEPTH`` groups in flight, collects the
+    oldest; ``drain`` collects the rest and returns every block in order.
+    The caller's waits on the worker are the span ``opt.wait``; each
+    group's stage clocks and counts are added when it is collected, in
+    the caller's thread."""
+
+    def __init__(self, block_size: int, checksum: bool):
+        self.block_size, self.checksum = block_size, checksum
+        self.threads = opt_threads()
+        self.pending: collections.deque = collections.deque()
+        self.blocks: list[bytes] = []
+
+    def put(self, data: np.ndarray, rows: np.ndarray) -> None:
+        """``data``: the group's plaintext, contiguous; ``rows``: its
+        packed candidates (``_group_cands``)."""
+        self.pending.append(_opt_pool().submit(
+            block_encode.encode_group_opt, data, self.block_size,
+            self.checksum, rows, EK.CAP, self.threads))
+        while len(self.pending) > OPT_DEPTH:
+            self._collect()
+
+    def _collect(self) -> None:
+        fut = self.pending.popleft()
+        with profiling.span("opt.wait"):
+            blocks, stats = fut.result()
+        block_encode.add_opt_stats(stats)
+        self.blocks += blocks
+
+    def drain(self) -> list[bytes]:
+        while self.pending:
+            self._collect()
+        return self.blocks
 
 
 def _encode_block(arr, level: int, checksum: bool, seqs, capped: bool):
@@ -428,12 +544,19 @@ def encode_chunk_device(data: bytes | np.ndarray, level: int, device=None,
     """One block with match finding and parse on ``device`` (None means
     cuda) and emission on the host: block header, payload (and checksum).
     No dictionary on this path. One dispatch group of one block, under
-    the spans and counter of ``compress_device``."""
+    the spans and counters of ``compress_device``; at level 7 the block's
+    DP runs in the calling thread."""
     dev = _device(device, "encode_chunk_device")
     arr = (data if isinstance(data, np.ndarray)
            else np.frombuffer(data, np.uint8))
     params = level_params(level)
     use_lcp = len(arr) <= EK.MAX_BLOCK and _matcher() == "lcp"
+    if level >= OPT_LEVEL:
+        rows = _group_cands(arr[None], dev, params, use_lcp)
+        (blk,), stats = block_encode.encode_group_opt(
+            arr, len(arr), checksum, rows, EK.CAP, 1)
+        block_encode.add_opt_stats(stats)
+        return blk
     (seqs,) = _group_seqs(arr[None], dev, params, use_lcp)
     return _encode_block(arr, level, checksum, seqs, use_lcp)
 
@@ -449,44 +572,65 @@ def compress_device(data: bytes, level: int = C.LEVEL_DEFAULT,
     full blocks go in dispatch groups of up to 16 (one LCP and one
     parse-walk launch a group); the tail block, the XLA matcher and the
     CPU go block by block. The archive is the same bytes whichever route a
-    block took, and equals ``zxc_tpu.ops.compress_device``'s.
+    block took, and equals ``zxc_tpu.ops.compress_device``'s at levels
+    1-6.
 
-    The call records ``profiling`` spans and a counter, and never
+    Level 7 (and over) is the archival level: the card finds every
+    position's best candidate (128 a position), they come back to the
+    host (``_group_cands``), and each group's blocks get their DP optimal
+    parse and payload auction in one native call on host threads
+    (``block_encode.encode_group_opt``) while the next group is matched
+    (``_OptPipe``); the blocks are the host level-7 pipeline's on those
+    candidates.
+
+    The call records ``profiling`` spans and counters, and never
     synchronises the card for them. ``_phases`` (a dict) receives those
-    of ``PHASES``, recorded in a collector of the call's own; without it
-    they go to the installed collector, if any. Spans, in seconds:
-    ``frame`` (block split, framing, the global hash); ``match`` (the
-    group's copy to the device, the hashes, sort and candidates, the LCP
-    launch and the best of K: host seconds issuing work, except that the
-    copy from pageable memory waits for the card's stream, and the XLA
-    matcher's masked gathers size their outputs on the host);
-    ``parse``, whose children are ``parse.issue`` (steps, the walk, the
-    compaction gathers) and ``parse.readback`` (the stack, the host's
-    wait until the group's queued work ends and its sequences are
-    copied, then their cut into blocks); ``emit``, a block's host
-    emission, one native call (``codec.block_encode.encode_chunk``),
-    whose children are that call's stage clocks: ``emit.cap`` (the
-    sequences checked and, at the LCP cap, extended), ``emit.streams``
-    (literals gathered, tokens, offsets, extras), ``emit.literals`` (the
-    literal section's auction) and ``emit.hufflit`` (the all-literal
-    candidate), one call each a block and no profiler range. The counter
-    ``d2h_bytes`` holds the bytes of every tensor the readback copies, on
-    any device; ``emit.native_bytes`` the plaintext bytes of the blocks
-    the native emitter wrote (every block of the call). The call's range
-    in a profiler trace, ``compress_device``, carries the plaintext bytes
-    and a call number of the process, and each group's range, ``group``,
-    its index and block count."""
+    of ``PHASES`` (and at level 7 ``OPT_PHASES``), recorded in a
+    collector of the call's own; without it they go to the installed
+    collector, if any. Spans, in seconds: ``frame`` (block split,
+    framing, the global hash); ``match`` (the group's copy to the
+    device, the hashes, sort and candidates, the LCP launch and the best
+    of K: host seconds issuing work, except that the copy from pageable
+    memory waits for the card's stream, and the XLA matcher's masked
+    gathers size their outputs on the host); ``parse``, whose children
+    are ``parse.issue`` (steps, the walk, the compaction gathers; at
+    level 7 the candidates' packing) and ``parse.readback`` (the stack,
+    the host's wait until the group's queued work ends and its sequences
+    or candidates are copied, then their cut into blocks); ``emit``, a
+    block's host emission, one native call
+    (``codec.block_encode.encode_chunk``; none at level 7), whose
+    children are that call's stage clocks: ``emit.cap`` (the sequences
+    checked and, at the LCP cap, extended; at level 7 the candidates'
+    lengths), ``emit.streams`` (literals gathered, tokens, offsets,
+    extras), ``emit.literals`` (the literal section's auction) and
+    ``emit.hufflit`` (the all-literal candidate), one call each a block
+    and no profiler range. At level 7 the native call's clocks add
+    ``opt.prepass`` (the lazy first pass and the literal prices) and
+    ``opt.dp`` (every DP pass), thread seconds of the native call's
+    threads, and the emission's stages sum over the parses emitted;
+    ``opt.wait`` is the calling thread's waits for those calls. The
+    counter ``d2h_bytes`` holds the bytes of every tensor the readback
+    copies, on any device;
+    ``emit.native_bytes`` the plaintext bytes of the blocks the native
+    emitter wrote (every block of the call); at level 7 ``opt.parses``
+    the parses emitted and ``opt.extended`` the positions whose length
+    was extended past the cap. The call's range in a profiler trace,
+    ``compress_device``, carries the plaintext bytes and a call number of
+    the process, and each group's range, ``group``, its index and block
+    count."""
     dev = _device(device, "compress_device")
     C.block_size_code(block_size)  # validate
     params = level_params(level)
+    opt = _OptPipe(block_size, checksum) if level >= OPT_LEVEL else None
     n_full = len(data) // block_size
-    use_batch = (n_full >= 2 and block_size <= EK.MAX_BLOCK
-                 and _matcher() == "lcp" and dev.type == "cuda")
+    use_lcp = block_size <= EK.MAX_BLOCK and _matcher() == "lcp"
+    use_batch = n_full >= 2 and use_lcp and dev.type == "cuda"
     blk_bytes: list[bytes] = []
     start = 0
     group = itertools.count()
-    with profiling.collect_into(_phases, PHASES), profiling.span(
-            "compress_device", {"bytes": len(data), "call": next(_calls)}):
+    with profiling.collect_into(_phases, PHASES + OPT_PHASES), \
+            profiling.span("compress_device", {"bytes": len(data),
+                                               "call": next(_calls)}):
         if use_batch:
             with profiling.span("frame"):
                 start = n_full * block_size
@@ -496,6 +640,9 @@ def compress_device(data: bytes, level: int = C.LEVEL_DEFAULT,
                 grp = blocks[g0:g0 + DISPATCH]
                 with profiling.span("group", {"index": next(group),
                                               "blocks": len(grp)}):
+                    if opt is not None:
+                        opt.put(grp, _group_cands(grp, dev, params, True))
+                        continue
                     seqs = _group_seqs(grp, dev, params, True)
                     blk_bytes += [_encode_block(grp[j], level, checksum,
                                                 seqs[j], True)
@@ -503,8 +650,17 @@ def compress_device(data: bytes, level: int = C.LEVEL_DEFAULT,
         for pos in range(start, len(data), block_size):
             with profiling.span("group", {"index": next(group),
                                           "blocks": 1}):
+                if opt is not None:
+                    arr = np.frombuffer(data, np.uint8,
+                                        min(block_size, len(data) - pos),
+                                        pos)
+                    opt.put(arr, _group_cands(arr[None], dev, params,
+                                              use_lcp))
+                    continue
                 blk_bytes.append(encode_chunk_device(
                     data[pos:pos + block_size], level, dev, checksum))
+        if opt is not None:
+            blk_bytes = opt.drain()
         with profiling.span("frame"):
             out = bytearray(headers.write_file_header(block_size, checksum))
             global_hash = 0

@@ -39,6 +39,7 @@ from ..codec.frame import level_params
 from ..format import headers
 from ..format.hashes import global_hash_update
 from ..ops import encode as ENC
+from ..ops import encode_kernels as EK
 from ..ops import expand
 from ..ops.batch import FramePlan, _pad_batch, _raise_errbits, _pow2
 from ..ops.device_pipeline import _device
@@ -331,6 +332,18 @@ def _match_parse(blocks: torch.Tensor, level: int):
                  for k in range(4))
 
 
+def _match_cands(blocks: torch.Tensor, level: int):
+    """Level 7's matcher on each row of a (b, S) uint8 batch: every
+    position's best candidate, compared at the LCP cap as
+    ``ops.encode._group_cands`` compares them, (lens, offs) (b, S) int32
+    with the lengths at most ``EK.CAP``."""
+    params = level_params(level)
+    outs = [ENC.find_matches_device(row, params.n_candidates, EK.CAP)
+            for row in blocks]
+    return (torch.stack([o[0] for o in outs]).clamp(max=EK.CAP).to(_I32),
+            torch.stack([o[1] for o in outs]).to(_I32))
+
+
 def _rank_blocks(blocks: np.ndarray, lo: int, hi: int,
                  mesh: DeviceMesh) -> torch.Tensor:
     return torch.from_numpy(np.array(blocks[lo:hi], np.uint8)).to(
@@ -343,17 +356,20 @@ def encode_blocks_sharded(blocks: np.ndarray, mesh: DeviceMesh,
     mesh.
 
     Returns (n_seq (B,), pos, len, off, each (B, S // 5 + 1) int32,
-    compacted) on the mesh's device, the whole batch on every rank. B
-    must be a multiple of the dp axis size (pad with zero blocks and
-    ignore their outputs). Byte emission stays on the host."""
+    compacted) on the mesh's device, the whole batch on every rank; at
+    level 7, whose parse runs on the host, every position's best
+    candidate instead: (lens, offs), each (B, S) int32, the lengths at
+    most ``EK.CAP`` (``_match_cands``). B must be a multiple of the dp
+    axis size (pad with zero blocks and ignore their outputs). Byte
+    emission stays on the host."""
     B = blocks.shape[0]
     ndp = _size(mesh, dp_axis)
     if B % ndp:
         raise ValueError(f"encode_blocks_sharded: {B} blocks do not split "
                          f"over {ndp} dp ranks (pad with zero blocks)")
     mine = _rank_blocks(blocks, *_rows(B, mesh, dp_axis), mesh)
-    return tuple(all_gather(t, mesh, dp_axis)
-                 for t in _match_parse(mine, level))
+    match = _match_cands if level >= ENC.OPT_LEVEL else _match_parse
+    return tuple(all_gather(t, mesh, dp_axis) for t in match(mine, level))
 
 
 def _gather_bytes(blobs: list[bytes], mesh: DeviceMesh, axis: str
@@ -385,10 +401,12 @@ def compress_sharded(data: bytes, mesh: DeviceMesh, level: int = 3,
     are gathered in order. The remaining blocks (the tail, and full
     blocks that do not fill the mesh) go through ``encode_chunk_device``
     on every rank alike. The archive equals the JAX package's
-    ``compress_sharded``. ``_phases`` (a dict) receives the seconds of
-    the ``profiling`` spans ``device`` (match and parse, up to the
-    sequences' readback, where the host waits on the card's work),
-    ``emit``, ``collective`` and ``tail``."""
+    ``compress_sharded`` at levels 1-6, and ``ops.compress_device``'s at
+    level 7, whose blocks go through the same native entry from their
+    candidates (``block_encode.encode_group_opt``). ``_phases`` (a dict)
+    receives the seconds of the ``profiling`` spans ``device`` (match
+    and parse, up to the sequences' readback, where the host waits on
+    the card's work), ``emit``, ``collective`` and ``tail``."""
     C.block_size_code(block_size)
     dev = mesh_device(mesh)
     ndp = _size(mesh, dp_axis)
@@ -401,14 +419,22 @@ def compress_sharded(data: bytes, mesh: DeviceMesh, level: int = 3,
                                    n_batch * block_size).reshape(n_batch,
                                                                  block_size)
             lo, hi = _rows(n_batch, mesh, dp_axis)
-            with profiling.span("device"):
-                seqs = ENC._host_seqs(*_match_parse(
-                    _rank_blocks(blocks, lo, hi, mesh), level))
-            with profiling.span("emit"):
-                local = [block_encode.encode_chunk(blocks[lo + j], level,
-                                                   checksum=checksum,
-                                                   sequences=seqs[j])
-                         for j in range(hi - lo)]
+            mine = _rank_blocks(blocks, lo, hi, mesh)
+            if level >= ENC.OPT_LEVEL:
+                with profiling.span("device"):
+                    rows = ENC._host_cands(ENC.pack_cands(
+                        *_match_cands(mine, level)))
+                with profiling.span("emit"):
+                    local, _ = block_encode.encode_group_opt(
+                        blocks[lo:hi], block_size, checksum, rows, EK.CAP,
+                        ENC.opt_threads())
+            else:
+                with profiling.span("device"):
+                    seqs = ENC._host_seqs(*_match_parse(mine, level))
+                with profiling.span("emit"):
+                    local = [block_encode.encode_chunk(
+                        blocks[lo + j], level, checksum=checksum,
+                        sequences=seqs[j]) for j in range(hi - lo)]
             with profiling.span("collective"):
                 blks = _gather_bytes(local, mesh, dp_axis)
         # the tail's own spans go to a collector apart, so that ``emit``

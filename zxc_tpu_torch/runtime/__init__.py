@@ -14,7 +14,8 @@ the lane-op and window-op splitters, the host block decoder
 frame, also in place), rapidhash64, the native frame encoder, the
 section emitters of the device encoder's host half (PivCo encode, RLE
 literals and package-merge code lengths) and its block emitter from
-given sequences (``zxch_emit_block``), the host block encoder's
+given sequences (``zxch_emit_block``) and its level-7 blocks from
+per-position candidates (``zxch_opt_group``), the host block encoder's
 matcher, parsers and fused GHI/GLO emitters, and the dictionary trainer.
 
 Unlike ``zxc_tpu.runtime`` there is no pure-Python fallback: the port's
@@ -143,6 +144,10 @@ def _bind(L: ctypes.CDLL) -> None:
     L.zxch_emit_block.restype = i64
     L.zxch_emit_block.argtypes = [vp, u64, ci, ci, vp, vp, vp, u64, i64, vp,
                                   u64, vp]
+    # level 7 from per-position candidates (the port's own entry)
+    L.zxch_opt_group.restype = i64
+    L.zxch_opt_group.argtypes = [vp, u64, u64, ci, vp, ctypes.c_int32, vp, u64,
+                                 vp, vp, vp, ci]
 
 
 def lib() -> ctypes.CDLL:
@@ -754,6 +759,45 @@ def emit_block(data: np.ndarray, level: int, checksum: bool, pos, lens,
     if n < 0:
         raise ZxcError(int(n), "native block emit")
     return out[:n].tobytes(), stages
+
+
+def opt_group(data: np.ndarray, block_size: int, checksum: bool,
+              packed: np.ndarray, cap_len: int, threads: int):
+    """The dictionary-free level-7 blocks of a dispatch group from every
+    position's best candidate, in one native call on ``threads`` threads
+    of its own (``zxch_opt_group``): ``data`` cut into blocks of
+    ``block_size`` (the last may be shorter); ``packed`` one int32 a byte
+    of data, ``len << 16 | (off - 1)``, ``len`` below 5 no match. Lengths
+    of ``cap_len`` and over (0: none) are made exact first, then the
+    level-7 pipeline of ``codec.block_encode`` runs from its lazy first
+    pass on (the DP passes and the payload auction), and each block gets
+    its header, payload and, with ``checksum``, the payload's checksum.
+    Returns the blocks, each block's six stage clocks (B, 6: the
+    candidates' check and cap extension, streams, literal auctions,
+    all-literal candidate, first pass and cost table, DP passes) and two
+    counts (B, 2: parses emitted, positions extended past the cap). The
+    call holds no Python lock. Raises ZxcError with the native code of
+    the first block that failed: a length past its block (-8), an offset
+    out of range (-9)."""
+    L = lib()
+    d8 = np.ascontiguousarray(data, np.uint8).reshape(-1)
+    pk = np.ascontiguousarray(packed, np.int32).reshape(-1)
+    if len(pk) != len(d8) or block_size < 1:
+        raise ValueError("packed needs one entry a byte of data")
+    nb = -(-len(d8) // block_size)
+    stride = block_size + 64
+    out = np.empty((nb, stride), np.uint8)
+    sizes = np.zeros(nb, np.int64)
+    stages = np.zeros((nb, 6), np.float64)
+    counts = np.zeros((nb, 2), np.int64)
+    r = L.zxch_opt_group(d8.ctypes.data, len(d8), block_size,
+                         1 if checksum else 0, pk.ctypes.data, cap_len,
+                         out.ctypes.data, stride, sizes.ctypes.data,
+                         stages.ctypes.data, counts.ctypes.data, threads)
+    if r < 0:
+        raise ZxcError(int(r), "native level-7 group")
+    return ([out[j, :sizes[j]].tobytes() for j in range(nb)], stages,
+            counts)
 
 
 def decompress_frame_into(buffer: bytearray, comp_size: int,

@@ -7490,3 +7490,251 @@ int64_t zxch_emit_block(const uint8_t *data, uint64_t n, int level,
 }
 
 }  // extern "C"
+
+// ---------------------------------------------------------------------------
+// Level 7 from per-position candidates (the device encoder's host half at
+// the archival level): the block's best (length, offset) at every position,
+// as the device matcher measured them, through zxch_encode_glo_opt's
+// level-7 pipeline from its lazy first pass on, then the block header, the
+// payload and the checksum, byte-identical with the Python pipeline of
+// block_encode on the same candidates (_first_pass_costs, the DP passes,
+// _token_costs, the _glo_payload auction). zxch_opt_group runs a dispatch
+// group's blocks on threads of its own, so that its caller crosses into
+// native code once a group.
+// ---------------------------------------------------------------------------
+namespace {
+
+struct OptScratch {
+  std::vector<int32_t> lens, offs, mp[4], ml[4], mo[4];
+  std::vector<uint8_t> pay[2];
+};
+thread_local OptScratch g_opt;
+
+// Lengths at the LCP cap and over made exact against the plaintext, in one
+// backward sweep: a capped position whose next position is capped with the
+// same offset is one longer than it; the last position of such a run is
+// measured byte by byte. Returns the positions that end past the cap.
+int64_t extend_capped(const uint8_t *data, uint64_t n, int32_t *lens,
+                      const int32_t *offs, int32_t cap_len) {
+  int64_t past = 0;
+  for (int64_t p = (int64_t)n - 1; p >= 0; p--) {
+    int32_t l = lens[p];
+    if (l < cap_len) continue;
+    if (p + 1 < (int64_t)n && lens[p + 1] >= cap_len && offs[p + 1] == offs[p])
+      lens[p] = lens[p + 1] + 1;
+    else
+      lens[p] = (int32_t)(extend_match(data, n, (uint64_t)(p + l),
+                                       (uint64_t)offs[p]) - p);
+    past += lens[p] > cap_len;
+  }
+  return past;
+}
+
+// One block of zxch_opt_group from its packed candidates, as that entry
+// documents it.
+int64_t opt_block(const uint8_t *data, uint64_t n, int checksum,
+                  const int32_t *packed, int32_t cap_len, uint8_t *out,
+                  uint64_t cap, double *stage_s, int64_t *counts) {
+  const uint64_t BH = 8;
+  const int maxlen = 11, tok_bits = 5, level = 7;
+  OptScratch &S = g_opt;
+  StageClock clk;
+  for (int k = 0; k < 6; k++) stage_s[k] = 0;
+  counts[0] = counts[1] = 0;
+  if (n > (1u << 21)) return -14;
+  if (cap < n + BH + 4) return -2;
+  int32_t *lens = grow(S.lens, n + 1), *offs = grow(S.offs, n + 1);
+  for (uint64_t p = 0; p < n; p++) {
+    uint32_t c = (uint32_t)packed[p];
+    int32_t l = (int32_t)(c >> 16), o = (int32_t)(c & 0xFFFF) + 1;
+    if (l >= 5) {
+      if ((uint64_t)l > n - p) return -8;
+      if ((uint64_t)o > p) return -9;
+    }
+    lens[p] = l;
+    offs[p] = o;
+  }
+  if (cap_len > 0) counts[1] = extend_capped(data, n, lens, offs, cap_len);
+  stage_s[0] = clk.lap();
+
+  const uint64_t max_seq = n / 5 + 8;
+  int32_t *mp[4], *ml[4], *mo[4];
+  for (int c = 0; c < 4; c++) {
+    mp[c] = grow(S.mp[c], max_seq);
+    ml[c] = grow(S.ml[c], max_seq);
+    mo[c] = grow(S.mo[c], max_seq);
+  }
+
+  // the literal prices: the lazy first pass's literal histogram
+  uint16_t cost[256];
+  {
+    int64_t g = zxch_lazy_parse(lens, offs, n, 1, 5, mp[0], ml[0], mo[0],
+                                max_seq);
+    if (g < 0) return -10;
+    uint64_t freq[256];
+    memset(freq, 0, sizeof(freq));
+    int64_t cursor = 0;
+    for (int64_t i = 0; i < g; i++) {
+      for (int64_t q = cursor; q < mp[0][i]; q++) freq[data[q]]++;
+      cursor = mp[0][i] + ml[0][i];
+    }
+    for (int64_t q = cursor; q < (int64_t)n; q++) freq[data[q]]++;
+    uint8_t cl[256];
+    bool flat = zxch_build_code_lengths(freq, maxlen, cl) <= 0;
+    if (!flat) {
+      // the regime check: literals that the auction will ship RAW
+      // priced at 8 bits
+      uint64_t tot = 0, hb = 0;
+      for (int s = 0; s < 256; s++) tot += freq[s], hb += freq[s] * cl[s];
+      flat = hb + 128 * 8 >= tot * 8;
+    }
+    for (int s = 0; s < 256; s++)
+      cost[s] = flat ? 8 : (cl[s] ? cl[s] : (uint16_t)(maxlen + 2));
+  }
+  stage_s[4] = clk.lap();
+
+  // the parses: pass 1, the re-priced pass 2, the 8-bit-offset pass
+  int64_t np[4];
+  int n_cands = 0;
+  np[0] = zxch_optimal_parse(lens, offs, n, data, cost, tok_bits, 0, nullptr,
+                             mp[0], ml[0], mo[0], max_seq);
+  if (np[0] < 0) return -10;
+  n_cands = 1;
+  if (np[0] >= 64) {
+    uint64_t tfreq[256];
+    memset(tfreq, 0, sizeof(tfreq));
+    double pll[16] = {0};
+    int64_t cursor = 0;
+    for (int64_t i = 0; i < np[0]; i++) {
+      int64_t llv = mp[0][i] - cursor, mlb = ml[0][i] - 5;
+      cursor = mp[0][i] + ml[0][i];
+      int nl = llv < 15 ? (int)llv : 15;
+      int nm = mlb < 15 ? (int)mlb : 15;
+      tfreq[(nl << 4) | nm]++;
+      pll[nl] += 1.0;
+    }
+    uint8_t tcl[256];
+    if (zxch_build_code_lengths(tfreq, 8, tcl) > 0) {
+      double tot = 0;
+      for (int l = 0; l < 16; l++) tot += pll[l];
+      if (tot < 1.0) tot = 1.0;
+      uint16_t tok16[16];
+      for (int m = 0; m < 16; m++) {
+        double e = 0;
+        for (int l = 0; l < 16; l++)
+          e += (pll[l] / tot) * (tcl[(l << 4) | m] ? tcl[(l << 4) | m] : 10.0);
+        tok16[m] = (uint16_t)nearbyint(e);
+      }
+      np[1] = zxch_optimal_parse(lens, offs, n, data, cost, tok_bits, 0,
+                                 tok16, mp[1], ml[1], mo[1], max_seq);
+      if (np[1] >= 0 &&
+          (np[1] != np[0] || memcmp(mp[1], mp[0], np[0] * 4) ||
+           memcmp(ml[1], ml[0], np[0] * 4) || memcmp(mo[1], mo[0], np[0] * 4)))
+        n_cands = 2;
+    }
+  }
+  bool any16 = false;
+  for (int c = 0; c < n_cands && !any16; c++)
+    for (int64_t i = 0; i < np[c]; i++)
+      if (mo[c][i] > 256) { any16 = true; break; }
+  if (any16) {
+    np[n_cands] = zxch_optimal_parse(lens, offs, n, data, cost, tok_bits, 1,
+                                     nullptr, mp[n_cands], ml[n_cands],
+                                     mo[n_cands], max_seq);
+    if (np[n_cands] >= 0) n_cands++;
+  }
+  stage_s[5] = clk.lap();
+
+  // the auction: each parse emitted, the smallest payload kept
+  const uint64_t gcap = 2 * n + 6 * max_seq + 4096;
+  uint8_t *best = grow(S.pay[0], gcap), *alt = grow(S.pay[1], gcap);
+  int64_t best_n = -1;
+  for (int c = 0; c < n_cands; c++) {
+    int64_t g = emit_glo(data, n, mp[c], ml[c], mo[c], np[c], level, alt,
+                         gcap, stage_s);
+    if (g >= 0 && (best_n < 0 || g < best_n)) {
+      std::swap(best, alt);
+      best_n = g;
+    }
+  }
+  counts[0] = n_cands;
+  clk.lap();
+
+  uint8_t *pay = out + BH;
+  int btype = 1;
+  int64_t psz = best_n;
+  if (psz < 0 || BH + (uint64_t)psz >= n) {
+    memcpy(pay, data, n);
+    psz = (int64_t)n;
+    btype = 0;
+  } else {
+    memcpy(pay, best, (size_t)psz);
+  }
+  memset(out, 0, BH);
+  out[0] = (uint8_t)btype;
+  uint32_t u = (uint32_t)psz;
+  memcpy(out + 3, &u, 4);
+  out[7] = zxch_hash8(out);
+  uint64_t w = BH + (uint64_t)psz;
+  if (checksum) {
+    u = zxch_rapidhash32(pay, (size_t)psz, 0);
+    memcpy(out + w, &u, 4);
+    w += 4;
+  }
+  stage_s[1] += clk.lap();
+  return (int64_t)w;
+}
+
+}  // namespace
+
+extern "C" {
+
+// The dictionary-free level-7 blocks of a dispatch group from their
+// per-position candidates, on `threads` threads of this call. Block j is
+// data[j*block_size, min((j+1)*block_size, n)); its candidates are
+// packed[j*block_size...], one int32 a position, len << 16 | (off - 1):
+// len < 5 is no match, else 1 <= off <= min(p, 65536) and len <= n - p.
+// Lengths of cap_len and over (0: none) are first made exact
+// (extend_capped). Then, as zxch_encode_glo_opt at level 7: the lazy first
+// pass and its literal histogram price literals (flat 8 bits where Huffman
+// would lose to RAW), DP pass 1 with 5-bit tokens and 11-bit codes, from
+// 64 sequences the DP re-priced with pass 1's token tree, the 8-bit-offset
+// DP where a parse has an offset over 256; each parse is emitted
+// (emit_glo) and the smallest payload wins, the first on ties; RAW where
+// the block would expand. Block j's header, payload and, with `checksum`,
+// the payload's rapidhash32 go to out + j*out_stride (out_stride >=
+// block_size + 12), its size to out_len[j]; stage_s[6j..6j+6) receives
+// the seconds of the candidates' check and cap extension, the streams and
+// the literal auctions (summed over the parses), the all-literal candidate
+// (none at level 7: 0), the first pass with the cost table, and the DP
+// passes; counts[2j..2j+2) the parses emitted and the positions extended
+// past the cap. Returns 0, or the error of the first block that failed:
+// -2 (out_stride too small), -8 (a length past the block), -9 (an offset
+// out of range), -10 (an internal buffer too small), -14 (a block over 2
+// MiB).
+int64_t zxch_opt_group(const uint8_t *data, uint64_t n, uint64_t block_size,
+                       int checksum, const int32_t *packed, int32_t cap_len,
+                       uint8_t *out, uint64_t out_stride, int64_t *out_len,
+                       double *stage_s, int64_t *counts, int threads) {
+  if (block_size == 0) return -2;
+  const uint64_t nb = (n + block_size - 1) / block_size;
+  std::atomic<uint64_t> next{0};
+  auto work = [&]() {
+    for (uint64_t j; (j = next.fetch_add(1)) < nb;) {
+      uint64_t s = j * block_size, len = std::min(block_size, n - s);
+      out_len[j] = opt_block(data + s, len, checksum, packed + s, cap_len,
+                             out + j * out_stride, out_stride,
+                             stage_s + 6 * j, counts + 2 * j);
+    }
+  };
+  uint64_t nt = std::min<uint64_t>(threads < 1 ? 1 : threads, nb);
+  std::vector<std::thread> pool;
+  for (uint64_t t = 1; t < nt; t++) pool.emplace_back(work);
+  work();
+  for (auto &th : pool) th.join();
+  for (uint64_t j = 0; j < nb; j++)
+    if (out_len[j] < 0) return out_len[j];
+  return 0;
+}
+
+}  // extern "C"
